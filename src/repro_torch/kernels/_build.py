@@ -1,0 +1,178 @@
+"""Build, load and launch helpers for the hand-written CUDA kernels.
+
+``csrc/*.cu`` is compiled at first use with one ``nvcc`` call per source into
+a shared library with a plain C interface under ``build/repro_torch/`` at the
+repository root, and loaded with ``ctypes``.  The library name carries a hash
+of the sources and flags, so an edited source is rebuilt and a stale library
+is never loaded.  The build runs once per process under a lock: the serving
+runtime's worker threads may all reach their first kernel together.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine-independent code must not need ``nvcc`` or a card until a kernel is
+actually launched on a CUDA tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas=-v")
+LINK_FLAGS = (*ARCH, "-shared")
+
+# ctypes signatures of the C entry points (pointers and the stream as
+# c_void_p: ctypes would otherwise pass them as 32-bit ints and cut them)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "repro_parity_encode": [_P, _P, _P, _I, _LL, _I, _P],
+    "repro_multigroup_decode": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
+    "repro_fused_encode_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _P],
+}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""            # nvcc's output (ptxas register/spill report)
+
+
+class LaunchCounter:
+    """Thread-safe count of kernel launches: each wrapper adds one where it
+    launches its kernel and nowhere else, so a run can show that its main
+    path went through the kernel."""
+
+    def __init__(self, name):
+        self.name = name
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self):
+        with self._lock:
+            self._n += 1
+
+    def reset(self):
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self):
+        return self._n
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "repro_torch are built from csrc/ at first use and need the CUDA "
+        "toolkit")
+
+
+def _compile(sources, out):
+    """One nvcc per source into an object, all started together, then one
+    link; returns the concatenated compiler output."""
+    nvcc = _nvcc()
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+    tmp.mkdir(parents=True, exist_ok=True)
+    objs, procs = [], []
+    for src in sources:
+        obj = tmp / (src.stem + ".o")
+        objs.append(obj)
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, p in procs:
+        text, _ = p.communicate()
+        logs.append(text)
+        if p.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    if failed:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    lib_tmp = tmp / out.name
+    cmd = [nvcc, *LINK_FLAGS, *map(str, objs), "-o", str(lib_tmp)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError(
+            f"nvcc link failed:\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    os.replace(lib_tmp, out)           # atomic: other processes see all or
+    shutil.rmtree(tmp, ignore_errors=True)   # nothing
+    return "".join(logs)
+
+
+def library():
+    """The loaded kernel library, built on first call (once per process,
+    under a lock).  Raises if the build or the load fails."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = sorted(CSRC.glob("*.cu"))
+        h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+        for src in sources:
+            h.update(src.read_bytes())
+        out = BUILD_DIR / f"libparity_kernels_{h.hexdigest()[:12]}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            build_log = _compile(sources, out)
+        lib = ctypes.CDLL(str(out))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return _lib
+
+
+def dtype_code(dtype):
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(
+            f"the CUDA kernels take float32 or bfloat16, got {dtype}")
+    return _DTYPE_CODES[dtype]
+
+
+def require_cuda(name, *tensors):
+    """Validate what a kernel takes: CUDA tensors on one device, each
+    contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(
+                f"{name}: kernel inputs must be CUDA tensors on one device, "
+                f"got {[str(u.device) for u in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel inputs must be contiguous")
+
+
+def stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc, name):
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if rc != 0:
+        msg = _lib.repro_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")

@@ -1,0 +1,109 @@
+"""Public ops around the CUDA kernels, dispatched by the inputs' device.
+
+A CPU tensor runs the kernel's plain PyTorch version (``kernels/ref.py``); a
+CUDA tensor launches the hand-written kernel, and a failed build or launch
+raises — nothing falls back.  Each op keeps the reference's trick of folding
+the missing index into data (an availability-masked coefficient vector), so
+one kernel serves every missing pattern.  Launch counts live on the kernel
+wrappers (``counters()``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import fused_encode_forward as _fused_ef
+from repro_torch.kernels import multigroup_decode as _mg_decode
+from repro_torch.kernels import parity_decode as _decode
+from repro_torch.kernels import parity_encode as _encode
+
+
+def counters():
+    """The four kernels' launch counters, by kernel name."""
+    return {m.launches.name: m.launches
+            for m in (_encode, _fused_ef, _decode, _mg_decode)}
+
+
+def _on_card(t):
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def _f32(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def parity_encode_op(queries, coeffs):
+    """queries [k, B, ...] (any trailing feature shape); coeffs [k]."""
+    k, B = queries.shape[:2]
+    flat = queries.reshape(k, B, -1)
+    c = _f32(coeffs, flat.device)
+    if _on_card(flat):
+        out = _encode.parity_encode(flat.contiguous(), c.contiguous())
+    else:
+        out = ref.parity_encode_ref(flat, c)
+    return out.reshape((B,) + tuple(queries.shape[2:]))
+
+
+def parity_decode_op(parity_out, outputs, missing_idx, coeffs=None):
+    """parity_out [B, V]; outputs [k, B, V]; missing_idx python int."""
+    k = outputs.shape[0]
+    dev = outputs.device
+    c = torch.ones((k,), dtype=torch.float32, device=dev) if coeffs is None \
+        else _f32(coeffs, dev)
+    avail = c * (torch.arange(k, device=dev) != missing_idx)
+    inv_c = 1.0 / c[missing_idx]
+    if _on_card(outputs):
+        return _decode.parity_decode(parity_out.contiguous(),
+                                     outputs.contiguous(), avail, inv_c)
+    return ref.parity_decode_ref(parity_out, outputs, avail, inv_c)
+
+
+def fused_encode_forward_op(queries, coeffs, weights):
+    """Fused coded hot path: encode + the first parity-forward matmul in one
+    launch.  queries [k, B, ...] (any trailing feature shape, flattened to
+    F); coeffs [r, k]; weights [r, F, V] — one first-layer matrix per parity
+    row — returns [r, B, V]."""
+    k, B = queries.shape[:2]
+    flat = queries.reshape(k, B, -1)
+    C = _f32(coeffs, flat.device)
+    if _on_card(flat):
+        return _fused_ef.fused_encode_forward(
+            flat.contiguous(), C.contiguous(), weights.contiguous())
+    return ref.fused_encode_forward_ref(flat, C, weights)
+
+
+def multigroup_decode_op(parity_outs, outputs, missing_idxs, coeffs):
+    """Batched r=1 subtraction decode over G stacked groups in one launch.
+
+    parity_outs [G, B, V...] (axis 1 is batch when present: [G, V...] inputs
+    are treated as batch 1); outputs [G, k, B, V...]; missing_idxs [G] ints;
+    coeffs [k] (shared) or [G, k] (per-group).  Returns reconstructions
+    shaped like ``parity_outs``."""
+    G, k = outputs.shape[:2]
+    dev = outputs.device
+    if parity_outs.ndim >= 3:
+        B = parity_outs.shape[1]
+        po = parity_outs.reshape(G, B, -1)
+        outs = outputs.reshape(G, k, B, -1)
+    else:
+        po = parity_outs.reshape(G, 1, -1)
+        outs = outputs.reshape(G, k, 1, -1)
+    idx = torch.as_tensor(missing_idxs, dtype=torch.long, device=dev)
+    c = _f32(coeffs, dev)
+    if c.ndim == 1:
+        c = c[None].expand(G, k)
+    avail = c * (torch.arange(k, device=dev)[None, :] != idx[:, None])
+    inv = 1.0 / torch.gather(c, 1, idx[:, None])                 # [G, 1]
+    cmat = torch.cat([avail, inv], dim=1)                        # [G, k+1]
+    if _on_card(outs):
+        out = _mg_decode.multigroup_decode(po.contiguous(), outs.contiguous(),
+                                           cmat.contiguous())
+    else:
+        out = ref.multigroup_decode_ref(po, outs, cmat)
+    return out.reshape(parity_outs.shape)

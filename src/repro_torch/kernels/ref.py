@@ -1,0 +1,43 @@
+"""Plain PyTorch versions of the CUDA kernels on the coded serving path.
+
+Each accumulates in fp32 and returns the input dtype, like the kernel it
+stands beside.  The CPU path of ``kernels/ops.py`` runs these, and the chip
+smoke test holds every kernel against them on the card."""
+from __future__ import annotations
+
+import torch
+
+
+def parity_encode_ref(queries, coeffs):
+    """queries [k, B, F]; coeffs [k] -> parity [B, F] (fp32 accumulate)."""
+    acc = torch.einsum("k,kbf->bf", coeffs.float(), queries.float())
+    return acc.to(queries.dtype)
+
+
+def parity_decode_ref(parity_out, outputs, avail_coeffs, inv_c):
+    """parity_out [B, V]; outputs [k, B, V]; avail_coeffs [k] (0 at the
+    missing index, code coefficient elsewhere); inv_c scalar = 1/c_missing.
+    Returns reconstruction [B, V]."""
+    s = torch.einsum("k,kbv->bv", avail_coeffs.float(), outputs.float())
+    inv_c = torch.as_tensor(inv_c, dtype=torch.float32,
+                            device=parity_out.device)
+    return ((parity_out.float() - s) * inv_c).to(parity_out.dtype)
+
+
+def fused_encode_forward_ref(queries, coeffs, weights):
+    """queries [k, B, F]; coeffs [r, k]; weights [r, F, V] (one first-layer
+    matrix per parity row) -> [r, B, V]: encode over the coding dim, then
+    each row's first forward matmul (fp32 accumulate throughout)."""
+    enc = torch.einsum("rk,kbf->rbf", coeffs.float(), queries.float())
+    out = torch.einsum("rbf,rfv->rbv", enc, weights.float())
+    return out.to(queries.dtype)
+
+
+def multigroup_decode_ref(parity_outs, outputs, cmat):
+    """parity_outs [G, B, V]; outputs [G, k, B, V]; cmat [G, k+1] (per-group
+    availability-masked coeffs, 0 at the missing index, with 1/c_missing
+    appended).  Returns [G, B, V] — the batched subtraction decode."""
+    k = outputs.shape[1]
+    s = torch.einsum("gk,gkbv->gbv", cmat[:, :k].float(), outputs.float())
+    inv = cmat[:, k].float()[:, None, None]
+    return ((parity_outs.float() - s) * inv).to(parity_outs.dtype)

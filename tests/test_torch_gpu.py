@@ -1,0 +1,91 @@
+"""The CUDA kernels of ``repro_torch`` against their plain PyTorch versions,
+on the card.  Every test here needs an NVIDIA GPU and the CUDA toolkit: it is
+marked ``gpu`` and skips (with its reason) where ``torch.cuda`` is not
+available.  Run on a GPU machine with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+This file imports no JAX, so it runs where only PyTorch is installed.
+Tolerances: fp32 2e-5, bf16 2e-2; the fused kernel scaled by sqrt(F*k),
+decodes by k."""
+import math
+
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _tol(dt):
+    return 2e-2 if dt == torch.bfloat16 else 2e-5
+
+
+def _close(got, want, atol, rtol):
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("k,B,F", [(2, 1, 784), (4, 8, 1000), (6, 2, 257)])
+def test_parity_encode_kernel(cuda, k, B, F, dt):
+    q = torch.randn((k, B, F), generator=cuda, device="cuda").to(dt)
+    c = torch.arange(1.0, k + 1.0, device="cuda")
+    before = ops.counters()["parity_encode"].value
+    got = ops.parity_encode_op(q, c)
+    assert ops.counters()["parity_encode"].value == before + 1
+    _close(got, ref.parity_encode_ref(q, c), _tol(dt), _tol(dt))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("k,B,V", [(2, 1, 10), (3, 8, 513)])
+def test_parity_decode_kernel(cuda, k, B, V, dt):
+    outs = torch.randn((k, B, V), generator=cuda, device="cuda").to(dt)
+    par = torch.randn((B, V), generator=cuda, device="cuda").to(dt)
+    c = torch.arange(1.0, k + 1.0, device="cuda")
+    for j in range(k):
+        avail = c * (torch.arange(k, device="cuda") != j)
+        _close(ops.parity_decode_op(par, outs, j, coeffs=c),
+               ref.parity_decode_ref(par, outs, avail, 1.0 / c[j]),
+               _tol(dt) * k, 2e-2)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("G,k,B,V", [(1000, 2, 1, 10), (4, 4, 2, 257)])
+def test_multigroup_decode_kernel(cuda, G, k, B, V, dt):
+    po = torch.randn((G, B, V), generator=cuda, device="cuda").to(dt)
+    outs = torch.randn((G, k, B, V), generator=cuda, device="cuda").to(dt)
+    idxs = torch.arange(G, device="cuda") % k
+    c = torch.arange(1.0, k + 1.0, device="cuda")
+    cg = c[None].expand(G, k)
+    avail = cg * (torch.arange(k, device="cuda")[None] != idxs[:, None])
+    cmat = torch.cat([avail, 1.0 / torch.gather(cg, 1, idxs[:, None])], 1)
+    _close(ops.multigroup_decode_op(po, outs, idxs, c),
+           ref.multigroup_decode_ref(po, outs, cmat), _tol(dt) * k, 2e-2)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("k,r,B,F,V", [(2, 1, 1000, 784, 200),
+                                       (4, 2, 1, 129, 64),
+                                       (2, 3, 8, 1024, 257)])
+def test_fused_encode_forward_kernel(cuda, k, r, B, F, V, dt):
+    q = torch.randn((k, B, F), generator=cuda, device="cuda").to(dt)
+    C = torch.randn((r, k), generator=cuda, device="cuda")
+    W = torch.randn((r, F, V), generator=cuda, device="cuda").to(dt)
+    mul = math.sqrt(F * k)
+    _close(ops.fused_encode_forward_op(q, C, W),
+           ref.fused_encode_forward_ref(q, C, W), _tol(dt) * mul,
+           _tol(dt) * mul)

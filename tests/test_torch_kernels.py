@@ -1,0 +1,271 @@
+"""The port's coded hot-path ops (``repro_torch.kernels``) against the JAX
+package's (``repro.kernels.ops``, Pallas in interpret mode on the CPU).
+
+The same numpy inputs, made from a seed, go through both.  On the CPU the
+port's ops run the kernels' plain PyTorch versions (CPU tensors), so these
+tests hold the plain versions and the ops' shape handling, missing-index
+folding and dtype rules to the reference; the CUDA kernels themselves are
+held against the same plain versions on the card (``chip_smoke.py``,
+``tests/test_torch_gpu.py``).  Tolerances are the reference tests': fp32
+2e-5, bf16 2e-2, the fused kernel scaled by sqrt(F*k), decodes by k.
+"""
+import ast
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.multigroup_decode import multigroup_lstsq as j_lstsq
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.multigroup_decode import multigroup_lstsq
+
+ROOT = Path(__file__).resolve().parents[1]
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(dt):
+    return 2e-2 if dt == "bf16" else 2e-5
+
+
+def _both(a, dt="f32"):
+    """One numpy array as a JAX array and a CPU tensor of the same dtype
+    (both round fp32 -> bf16 to nearest even, so the inputs are equal)."""
+    jd, td = DTYPES[dt]
+    return jnp.asarray(a, jd), torch.tensor(a).to(td)
+
+
+def _close(got, want, atol, rtol=None):
+    np.testing.assert_allclose(np.asarray(got.float() if isinstance(
+        got, torch.Tensor) else got, np.float32), np.asarray(want, np.float32),
+        atol=atol, rtol=atol if rtol is None else rtol)
+
+
+@pytest.mark.parametrize("k,B,F,dt", [
+    (2, 4, 512, "f32"), (3, 1, 128, "f32"), (4, 8, 1000, "bf16"),
+    (6, 2, 257, "f32"), (2, 1, 784, "f32"),
+])
+def test_parity_encode(k, B, F, dt):
+    rng = np.random.default_rng(k * 31 + B)
+    jq, tq = _both(rng.normal(size=(k, B, F)).astype(np.float32), dt)
+    c = np.arange(1.0, k + 1.0, dtype=np.float32)
+    want = jops.parity_encode_op(jq, jnp.asarray(c))
+    got = ops.parity_encode_op(tq, torch.tensor(c))
+    assert got.dtype == tq.dtype and tuple(got.shape) == want.shape
+    _close(got, want, _tol(dt))
+    _close(ref.parity_encode_ref(tq, torch.tensor(c)),
+           jref.parity_encode_ref(jq, jnp.asarray(c)), _tol(dt))
+
+
+def test_parity_encode_trailing_feature_shape():
+    rng = np.random.default_rng(0)
+    jq, tq = _both(rng.normal(size=(2, 3, 4, 6, 1)).astype(np.float32))
+    c = np.array([1.0, 2.0], np.float32)
+    got = ops.parity_encode_op(tq, torch.tensor(c))
+    assert tuple(got.shape) == (3, 4, 6, 1)
+    _close(got, jops.parity_encode_op(jq, jnp.asarray(c)), 2e-5)
+
+
+@pytest.mark.parametrize("k,B,V,dt", [
+    (2, 4, 100, "f32"), (4, 2, 1000, "f32"), (3, 8, 513, "bf16"),
+    (2, 1, 10, "f32"),
+])
+def test_parity_decode(k, B, V, dt):
+    rng = np.random.default_rng(7 + k)
+    jo, to = _both(rng.normal(size=(k, B, V)).astype(np.float32), dt)
+    jp, tp = _both(rng.normal(size=(B, V)).astype(np.float32), dt)
+    c = np.arange(1.0, k + 1.0, dtype=np.float32)
+    for j in range(k):
+        want = jops.parity_decode_op(jp, jo, j, coeffs=jnp.asarray(c))
+        got = ops.parity_decode_op(tp, to, j, coeffs=torch.tensor(c))
+        assert got.dtype == tp.dtype
+        _close(got, want, _tol(dt) * k, 2e-2)
+        avail = c * (np.arange(k) != j)
+        _close(ref.parity_decode_ref(tp, to, torch.tensor(avail),
+                                     1.0 / float(c[j])),
+               jref.parity_decode_ref(jp, jo, jnp.asarray(avail),
+                                      1.0 / float(c[j])),
+               _tol(dt) * k, 2e-2)
+    # coeffs=None is the plain sum code
+    _close(ops.parity_decode_op(tp, to, 0),
+           jops.parity_decode_op(jp, jo, 0), _tol(dt) * k, 2e-2)
+
+
+@pytest.mark.parametrize("k,r,B,F,V,dt", [
+    (2, 1, 4, 512, 128, "f32"),
+    (3, 1, 5, 300, 130, "f32"),      # nothing 128-aligned
+    (2, 3, 8, 1024, 257, "f32"),     # trailing partial V block
+    (4, 2, 1, 129, 64, "f32"),       # trailing partial F block, B=1
+    (4, 2, 8, 1000, 100, "bf16"),
+])
+def test_fused_encode_forward(k, r, B, F, V, dt):
+    rng = np.random.default_rng(k * 97 + r * 13 + F)
+    jq, tq = _both(rng.normal(size=(k, B, F)).astype(np.float32), dt)
+    C = rng.normal(size=(r, k)).astype(np.float32)
+    jw, tw = _both(rng.normal(size=(r, F, V)).astype(np.float32), dt)
+    want = jops.fused_encode_forward_op(jq, jnp.asarray(C), jw)
+    got = ops.fused_encode_forward_op(tq, torch.tensor(C), tw)
+    assert tuple(got.shape) == (r, B, V) and got.dtype == tq.dtype
+    tol = _tol(dt) * np.sqrt(F * k)
+    _close(got, want, tol)
+    _close(ref.fused_encode_forward_ref(tq, torch.tensor(C), tw),
+           jref.fused_encode_forward_ref(jq, jnp.asarray(C), jw), tol)
+
+
+def test_fused_encode_forward_trailing_feature_shape():
+    """Image-shaped queries flatten to F inside the op."""
+    rng = np.random.default_rng(0)
+    jq, tq = _both(rng.normal(size=(3, 2, 4, 6, 2)).astype(np.float32))
+    C = np.array([[1.0, 2.0, 3.0]], np.float32)
+    jw, tw = _both(rng.normal(size=(1, 48, 10)).astype(np.float32))
+    _close(ops.fused_encode_forward_op(tq, torch.tensor(C), tw),
+           jops.fused_encode_forward_op(jq, jnp.asarray(C), jw), 2e-5 * 16)
+
+
+@pytest.mark.parametrize("G,k,B,V", [(1, 2, 1, 9), (5, 3, 4, 100),
+                                     (4, 4, 2, 257), (20, 2, 1, 10)])
+def test_multigroup_decode(G, k, B, V):
+    """Shared and per-group coefficients, every missing index."""
+    rng = np.random.default_rng(G * 7 + k)
+    jp, tp = _both(rng.normal(size=(G, B, V)).astype(np.float32))
+    jo, to = _both(rng.normal(size=(G, k, B, V)).astype(np.float32))
+    idxs = np.arange(G) % k
+    for c in (np.arange(1.0, k + 1.0, dtype=np.float32),
+              rng.normal(size=(G, k)).astype(np.float32) + 2.0):
+        want = jops.multigroup_decode_op(jp, jo, idxs, jnp.asarray(c))
+        got = ops.multigroup_decode_op(tp, to, idxs, torch.tensor(c))
+        _close(got, want, 2e-5 * k)
+
+
+def test_multigroup_decode_no_batch_axis_and_ref():
+    G, k, V = 3, 2, 40
+    rng = np.random.default_rng(0)
+    jp, tp = _both(rng.normal(size=(G, V)).astype(np.float32))
+    jo, to = _both(rng.normal(size=(G, k, V)).astype(np.float32))
+    idxs = np.array([0, 1, 0])
+    c = np.array([2.0, 3.0], np.float32)
+    got = ops.multigroup_decode_op(tp, to, idxs, torch.tensor(c))
+    assert tuple(got.shape) == (G, V)
+    _close(got, jops.multigroup_decode_op(jp, jo, idxs, jnp.asarray(c)), 2e-5)
+    cg = np.broadcast_to(c, (G, k)).copy()
+    avail = cg * (np.arange(k)[None] != idxs[:, None])
+    inv = 1.0 / np.take_along_axis(cg, idxs[:, None], 1)
+    cmat = np.concatenate([avail, inv], 1).astype(np.float32)
+    _close(ref.multigroup_decode_ref(tp[:, None], to[:, :, None],
+                                     torch.tensor(cmat)),
+           jref.multigroup_decode_ref(jp[:, None], jo[:, :, None],
+                                      jnp.asarray(cmat)), 2e-5)
+
+
+@pytest.mark.parametrize("k,r", [(3, 2), (4, 3)])
+def test_multigroup_lstsq(k, r):
+    """Batched masked least squares, varied masks and a straggling parity."""
+    from repro_torch.core.codes import vandermonde
+    rng = np.random.default_rng(k + r)
+    C = vandermonde(k, r).astype(np.float32)
+    G, B, V = 4, 2, 11
+    masks = np.zeros((G, k), bool)
+    for g in range(G):
+        masks[g, rng.choice(k, size=1 + g % r, replace=False)] = True
+    pa = np.ones((G, r), bool)
+    pa[-1, -1] = masks[-1].sum() >= r        # lose a surplus parity only
+    po = rng.normal(size=(G, r, B, V)).astype(np.float32)
+    outs = rng.normal(size=(G, k, B, V)).astype(np.float32)
+    want = j_lstsq(jnp.asarray(C), jnp.asarray(po), jnp.asarray(outs),
+                   jnp.asarray(masks), jnp.asarray(pa))
+    got = multigroup_lstsq(torch.tensor(C), torch.tensor(po),
+                           torch.tensor(outs), torch.tensor(masks),
+                           torch.tensor(pa))
+    _close(got, want, 1e-4 * k)
+
+
+def test_cpu_ops_launch_no_kernel():
+    """CPU tensors take the plain versions: no launch is counted."""
+    before = {n: c.value for n, c in ops.counters().items()}
+    q = torch.ones(2, 3, 5)
+    ops.parity_encode_op(q, torch.ones(2))
+    ops.parity_decode_op(torch.ones(3, 5), q, 1)
+    ops.multigroup_decode_op(torch.ones(4, 5), torch.ones(4, 2, 5),
+                             np.array([0, 1, 0, 1]), torch.ones(2))
+    ops.fused_encode_forward_op(q, torch.ones(1, 2), torch.ones(1, 5, 7))
+    assert {n: c.value for n, c in ops.counters().items()} == before
+    assert set(before) == {"parity_encode", "parity_decode",
+                           "multigroup_decode", "fused_encode_forward"}
+
+
+def test_other_devices_raise():
+    """Only CPU (plain version) and CUDA (kernel) tensors are dispatched."""
+    q = torch.empty(2, 3, 5, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain path"):
+        ops.parity_encode_op(q, torch.ones(2, device="meta"))
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    """A kernel wrapper never runs a plain version: handed a CPU tensor it
+    raises before touching the build."""
+    from repro_torch.kernels import (fused_encode_forward, multigroup_decode,
+                                     parity_decode, parity_encode)
+    q = torch.ones(2, 3, 5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        parity_encode.parity_encode(q, torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        parity_decode.parity_decode(torch.ones(3, 5), q, torch.ones(2),
+                                    torch.tensor(1.0))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        multigroup_decode.multigroup_decode(torch.ones(4, 3, 5),
+                                            torch.ones(4, 2, 3, 5),
+                                            torch.ones(4, 3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_encode_forward.fused_encode_forward(q, torch.ones(1, 2),
+                                                  torch.ones(1, 5, 7))
+
+
+def _port_sources():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_no_jax_and_no_reference():
+    """An AST walk over every module of the port and chip_smoke.py: no
+    import of jax (or jaxlib) and none of the JAX package ``repro``."""
+    bad = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert len(_port_sources()) > 20
+    assert not bad, bad
+
+
+def test_default_device_entry_points_raise_without_cuda(monkeypatch):
+    """With no card and no explicit device="cpu", entry points raise."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.parity import train_parity_models
+    from repro_torch.core.scheme import get_scheme
+    from repro_torch.models.cnn import build
+    from repro_torch.serving.api import DeploymentSpec, deploy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_scheme("sum", k=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build("mlp", 0, image_shape=(4, 4, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy({"w": np.ones((2, 2))})
+    params, fwd = build("mlp", 0, image_shape=(4, 4, 1), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deploy(DeploymentSpec(fwd=fwd, params=params), engine="threads")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_parity_models(params, fwd, None, np.zeros((4, 4, 4, 1)), k=2)
+    # ... and the explicit CPU request works
+    assert get_scheme("sum", k=2, device="cpu").coeffs.device.type == "cpu"
