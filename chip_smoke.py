@@ -5,27 +5,43 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. device  — print the card's name and power limit, build the CUDA kernels
-             from ``src/repro_torch/csrc`` (``nvcc``, ``sm_90a``);
-2. kernels — hold each kernel against its plain PyTorch version on the card
-             (test sweeps in fp32 and bf16, then the main-path shapes) and
-             time it beside the plain version, one PyTorch library call for
-             the same function, and its bound;
-3. serve   — the paper's MLP (784-200-100-10) trained on the card, ``sum``
-             parity at k=2 provisioned, and 120 queries served through
-             ``deploy(spec, engine="threads")`` with a straggling instance;
-             then a short pass with the batched decode forced;
-4. A_d     — degraded-mode accuracy over 2000 test images through the fused
-             encode+forward and the multigroup decode, against the same
-             computation on the plain path.
+1. device    — print the card's name and power limit, build the CUDA kernels
+               from ``src/repro_torch/csrc`` (``nvcc``, ``sm_90a``);
+2. kernels   — hold each kernel against its plain PyTorch version on the card
+               (test sweeps in fp32 and bf16, then the main-path shapes) and
+               time it beside the plain version, one PyTorch library call for
+               the same function, and its bound;
+3. serve     — the paper's MLP (784-200-100-10) trained on the card, ``sum``
+               parity at k=2 provisioned, and 120 queries served through
+               ``deploy(spec, engine="threads")`` with a straggling instance;
+               then a short pass with the batched decode forced;
+4. A_d       — degraded-mode accuracy over 2000 test images through the fused
+               encode+forward and the multigroup decode, against the same
+               computation on the plain path;
+5. schemes   — resnet18s (stages 16/32/64, 32x32x3 inputs) trained on the
+               card and all seven registered schemes provisioned and scored
+               through ``eval.unavailability.accuracy_under_unavailability``;
+               each scheme's A_d and parity outputs held against a
+               ``backend="torch"`` twin with the same parameters;
+6. errors    — ``accuracy_under_errors`` for sum and approxifer at r=2 over
+               error rates 0, 0.1 and 0.25;
+7. byzantine — resnet18s served with ``approxifer`` (k=2, r=2) on the threads
+               engine under a deterministic corrupt-and-slow member, then
+               with ``approxifer`` (k=2, r=1) and a straggling instance.
 
-Launch counters are zeroed just before phase 3 and read after phase 4: every
-kernel must have run on the main path.  The last two lines of standard output
-are a ``{"kernels": [...]}`` JSON object and the ``{"ok": true, ...}`` result.
-Imports nothing of JAX and nothing of the JAX package.
+The launch counters are zeroed before each of the two paths (phases 3-4, the
+coded MLP serving path; phases 5-7, the scheme registry's path) and read after
+it; every kernel of a path must have run on it.  Launches made only to compare
+a kernel path with its plain twin are not counted.  The last two lines of
+standard output are a ``{"kernels": [...]}`` JSON object and the
+``{"ok": true, ...}`` result.  Imports nothing of JAX and nothing of the JAX
+package.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -46,8 +62,11 @@ from repro_torch.core.parity import (fused_parity_outputs,  # noqa: E402
                                      train_parity_models)
 from repro_torch.core.scheme import get_scheme  # noqa: E402
 from repro_torch.data.pipeline import batched, cluster_images  # noqa: E402
+from repro_torch.eval import unavailability as unavail  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import berrut_encoder as k_berrut  # noqa: E402
 from repro_torch.kernels import fused_encode_forward as k_fused  # noqa: E402
+from repro_torch.kernels import learned_encoder as k_proj  # noqa: E402
 from repro_torch.kernels import multigroup_decode as k_mg  # noqa: E402
 from repro_torch.kernels import parity_decode as k_dec  # noqa: E402
 from repro_torch.kernels import parity_encode as k_enc  # noqa: E402
@@ -55,7 +74,8 @@ from repro_torch.models.cnn import build  # noqa: E402
 from repro_torch.serving import runtime  # noqa: E402
 from repro_torch.serving.api import (BatchingPolicy,  # noqa: E402
                                      DeploymentSpec, deploy)
-from repro_torch.serving.scenarios import pool_of_iid  # noqa: E402
+from repro_torch.serving.scenarios import (  # noqa: E402
+    DeterministicCorruption, DeterministicSlowdown, Scenario, pool_of_iid)
 from repro_torch.training.loss import softmax_xent  # noqa: E402
 from repro_torch.training.optim import (AdamConfig, adam_init,  # noqa: E402
                                         adam_update)
@@ -230,6 +250,29 @@ def sweep_kernels():
                             ref.multigroup_decode_ref(po, outs, cmat),
                             tol(dt) * k, 2e-2)
                 n += 1
+    # B5 (r = 11 spills into a second row group) and B6 (the approxifer
+    # shapes, flattened to [k, B, F]); tolerance 4x the dtype's, as in the
+    # reference's tests
+    for H, r, B, F in [(8, 1, 4, 512), (16, 2, 1, 128), (16, 3, 2, 257),
+                       (32, 2, 8, 1000), (4, 11, 3, 1000), (16, 1, 1, 3072)]:
+        for dt in (torch.float32, torch.bfloat16):
+            h = randn(gen, (H, B, F), dt)
+            w = randn(gen, (H, r), torch.float32)
+            check_close(f"learned_project {H,r,B,F,dt}",
+                        ops.learned_project_op(h, w),
+                        ref.learned_project_ref(h, w), tol(dt) * 4,
+                        tol(dt) * 4)
+            n += 1
+    for k, r, B, F in [(2, 1, 3, 8), (3, 2, 1, 16), (4, 2, 2, 130),
+                       (2, 2, 9, 5), (2, 2, 1, 3072)]:
+        for dt in (torch.float32, torch.bfloat16):
+            q = randn(gen, (k, B, F), dt)
+            c = randn(gen, (r, k), torch.float32)
+            check_close(f"berrut_encode {k,r,B,F,dt}",
+                        ops.berrut_encode_op(q, c),
+                        ref.learned_project_ref(q, c.T), tol(dt) * 4,
+                        tol(dt) * 4)
+            n += 1
     torch.cuda.synchronize()
     return n
 
@@ -327,15 +370,56 @@ def measure_kernels():
             torch.einsum("rk,kbf->rbf", C, q), W)),
         bound=bound((k * B * F + r * F * V + r * B * V) * es + r * k * 4,
                     2 * r * k * B * F + 2 * r * B * F * V, f32))
+
+    # B5 and B6 at the four shapes phases 5-6 give them (A_d over 200
+    # groups of two 32x32x3 images); the first of each is the JSON row
+    def project_row(label, shape, counter):
+        H, B, F, r = shape                  # H is k for the berrut encode
+        h = randn(gen, (H, B, F), f32)
+        w = randn(gen, (H, r), f32)
+        c = w.T.contiguous()                # C [r, k], so that W = C^T
+
+        def call():
+            if counter == "berrut_encode":
+                return k_berrut.berrut_encode(h, c)
+            return k_proj.learned_project(h, w)
+        row = dict(
+            label=label, shape=[H, B, F, r],
+            max_abs_err=check_close(label, call(),
+                                    ref.learned_project_ref(h, w), 2e-5 * 4,
+                                    2e-5 * 4),
+            ms=time_ms(call),
+            device_ms=device_ms(call, "project_kernel"),
+            plain_ms=time_ms(lambda: ref.learned_project_ref(h, w)),
+            library_ms=time_ms(lambda: torch.einsum("hr,hbf->rbf", w, h)),
+            bound=bound((H + r) * B * F * es + H * r * 4, 2 * H * r * B * F,
+                        f32))
+        rows.setdefault(counter, dict(
+            replaces="src/repro/kernels/learned_encoder.py:32"
+            if counter == "learned_project"
+            else "src/repro/kernels/berrut_encoder.py:23", shapes=[]))
+        rows[counter]["shapes"].append(row)
+
+    project_row("learned A_d", (16, 200, 3072, 1), "learned_project")
+    project_row("invnet coupling shift", (8, 400, 1536, 1),
+                "learned_project")
+    project_row("approxifer A_d r=1", (2, 200, 3072, 1), "berrut_encode")
+    project_row("approxifer errors r=2", (2, 200, 3072, 2), "berrut_encode")
+    for name in ("learned_project", "berrut_encode"):
+        first = rows[name]["shapes"][0]
+        rows[name].update({key: first[key] for key in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "bound")})
     for name, row in rows.items():
-        dev = "not measured" if row["device_ms"] is None else \
-            f"{row['device_ms']:.5f}"
-        log(f"[kernels] {name:21s} shape={row['shape']} "
-            f"max_abs_err={row['max_abs_err']:.3e} ms={row['ms']:.5f} "
-            f"device_ms={dev} "
-            f"plain_ms={row['plain_ms']:.5f} "
-            f"library_ms={row['library_ms']:.5f} "
-            f"bound_ms={row['bound'][0]:.6f} ({row['bound'][1]})")
+        for one in row.get("shapes", [dict(row, label="")]):
+            dev = "not measured" if one["device_ms"] is None else \
+                f"{one['device_ms']:.5f}"
+            log(f"[kernels] {name:21s} {one['label']} shape={one['shape']} "
+                f"max_abs_err={one['max_abs_err']:.3e} ms={one['ms']:.5f} "
+                f"device_ms={dev} "
+                f"plain_ms={one['plain_ms']:.5f} "
+                f"library_ms={one['library_ms']:.5f} "
+                f"bound_ms={one['bound'][0]:.6f} ({one['bound'][1]})")
     return rows
 
 
@@ -469,30 +553,256 @@ def a_d(scheme, params, pp, fwd, xt, yt):
                                  scheme), to_host(pouts)
 
 
+# ------------------------------------------------------------ phase 5 ----
+# the JAX package's CI-smoke settings for the registry's A_d ranking
+# (benchmarks/accuracy.py:bench_ci_smoke) and its CPU values there
+# (benchmarks/BENCH_baseline.json, acc_unavail_*_Ad): accuracies, printed
+# only for comparison
+SCHEME_SETTINGS = dict(n_train=2000, n_test=400, noise=0.8, deployed_epochs=5,
+                       parity_epochs=5, seed=0, k=K)
+REFERENCE_A_D = {"sum": 0.2375, "concat": 0.39, "learned": 0.22,
+                 "approx_backup": 1.0, "approxifer": 0.945, "fisher": 0.945,
+                 "invnet": 0.945}
+RESNET_IMG = (32, 32, 3)
+# parity outputs (logits) of the kernel path against the plain twin: the
+# kernels sum in another order than the plain path's einsum, and the
+# difference passes through the resnet's convolutions
+POUT_TOL = 1e-3
+
+
+def counts():
+    return {name: c.value for name, c in ops.counters().items()}
+
+
+class Uncounted:
+    """Launch counts of the comparison runs inside a path, which the path's
+    own counts leave out."""
+
+    def __init__(self):
+        self.n = collections.Counter()
+
+    @contextlib.contextmanager
+    def __call__(self):
+        before = counts()
+        yield
+        for name, v in counts().items():
+            self.n[name] += v - before[name]
+
+
+def phase_schemes(uncounted):
+    prov = {}
+    res = unavail.accuracy_under_unavailability(device=DEV, provisioned=prov,
+                                                **SCHEME_SETTINGS)
+    params, fwd = prov["deployed"]
+    xt, yt = prov["test"]
+    a_a, ads = res["A_a"], res["schemes"]
+    log(f"[schemes] resnet18s trained on the card: A_a={a_a:.4f} on "
+        f"{len(xt)} test images")
+    rows = {}
+    with uncounted():
+        for name, a_d in ads.items():
+            scheme, pp, pfwd = prov[name]
+            twin = dataclasses.replace(scheme, backend="torch")
+            ad_twin = unavail._degraded(twin, pp, pfwd, params, fwd, xt, yt,
+                                        10)
+            _, p_k = unavail._outputs(scheme, pp, pfwd, params, fwd, xt, 10)
+            _, p_t = unavail._outputs(twin, pp, pfwd, params, fwd, xt, 10)
+            err = check_close(f"{name} parity outputs", p_k, p_t, POUT_TOL,
+                              POUT_TOL)
+            log(f"[schemes] {name:13s} A_d={a_d:.4f} plain-twin "
+                f"A_d={ad_twin:.4f} (JAX package, CPU: "
+                f"{REFERENCE_A_D[name]:.4f}); parity outputs max abs err "
+                f"{err:.3e} (tolerance {POUT_TOL:g})")
+            if abs(a_d - ad_twin) > 0.01:
+                raise AssertionError(f"{name}: A_d {a_d} vs twin {ad_twin}")
+            rows[name] = dict(A_d=a_d, A_d_plain=ad_twin, pout_err=err)
+    if not a_a > 0.8:
+        raise AssertionError(f"A_a={a_a}: the deployed resnet did not learn")
+    if not ads["approxifer"] >= ads["sum"] - 0.05:
+        raise AssertionError(f"approxifer A_d {ads['approxifer']} below sum "
+                             f"{ads['sum']} - 0.05")
+    return params, fwd, xt, a_a, rows
+
+
+# ------------------------------------------------------------ phase 6 ----
+def phase_errors():
+    """The JAX package's error-rate sweep settings
+    (benchmarks/accuracy.py:bench_error_rate_sweep) and the four properties
+    its acceptance test asserts."""
+    res = unavail.accuracy_under_errors(
+        schemes=("sum", "approxifer"), error_rates=(0.0, 0.1, 0.25),
+        n_train=1500, n_test=400, noise=0.8, k=K, r=2, deployed_epochs=3,
+        parity_epochs=4, seed=0, device=DEV)
+    s, a = res["schemes"]["sum"], res["schemes"]["approxifer"]
+    log(f"[errors] A_a={res['A_a']:.4f} sum={s} approxifer={a}")
+    checks = {"identical clean predictions": s[0.0] == a[0.0],
+              "approxifer near-lossless at 10%": a[0.1] >= a[0.0] - 0.03,
+              "robustness gap at 25%": a[0.25] > s[0.25] + 0.04,
+              "sum degrades at 10%": s[0.1] < s[0.0] - 0.03}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"error sweep: {failed}: {res}")
+    return {"sum": s, "approxifer": a}
+
+
+# ------------------------------------------------------------ phase 7 ----
+def phase_byzantine(params, fwd, xt, uncounted):
+    """approxifer on the threads engine with the trained resnet18s."""
+    cnt = ops.counters()
+    xs = [xt[i:i + 1] for i in range(len(xt))]
+    with torch.inference_mode():
+        fwd(params, xs[0])                      # warm the batch-1 forward
+    # (a) k=2, r=2, main server 1 corrupt and slow: its garbage arrives
+    # after the clean member and both extra responses, so the vote evicts
+    # it and its query is served from a clean reconstruction
+    scen = Scenario("byzantine-deterministic", (
+        DeterministicCorruption(targets=(("main", 1),), add_ms=700.0),
+        DeterministicSlowdown(targets=(("main", 0),), add_ms=50.0),
+        DeterministicSlowdown(targets=(("parity0", 0), ("parity1", 0)),
+                              add_ms=300.0)))
+    spec = DeploymentSpec(fwd=fwd, params=params,
+                          parity_params=[params, params], strategy="parm",
+                          scheme="approxifer", k=K, r=2, m=K, scenario=scen,
+                          device=DEV)
+    before = counts()
+    sess = deploy(spec, engine="threads")
+    try:
+        sess.frontend.encode_fn(np.zeros((K,) + xs[0].shape, np.float32))
+        futs = [sess.submit(x) for x in xs[:K]]
+        if not sess.wait_all(timeout=60):
+            raise AssertionError("byzantine: unanswered queries")
+    finally:
+        sess.shutdown()
+    stats = sess.stats()
+    if (stats.corrupted_detected, stats.corrected) != (1, 1):
+        raise AssertionError(f"byzantine: detected={stats.corrupted_detected}"
+                             f" corrected={stats.corrected}")
+    with uncounted():
+        check_served_approxifer(futs, xs[:K], params, fwd, spec)
+    grew = counts()["berrut_encode"] - before["berrut_encode"]
+    if grew <= 0:
+        raise AssertionError("byzantine: berrut_encode was not launched")
+    log(f"[byzantine] k=2 r=2: completed_by={stats.completed_by} "
+        f"detected={stats.corrupted_detected} corrected={stats.corrected}; "
+        f"answers equal the plain path; berrut_encode launches +{grew}")
+
+    # (b) k=2, r=1 with instance 0 straggling: the r=1 rebuild is
+    # approxifer's decode_one, through the subtraction-decode kernel
+    def straggle(iid):
+        return 0.150 if iid == 0 else 0.0
+
+    spec1 = DeploymentSpec(fwd=fwd, params=params, parity_params=params,
+                           strategy="parm", scheme="approxifer", k=K, m=4,
+                           delay_fn=straggle, device=DEV)
+    before = counts()
+    futs, stats1, _ = serve(spec1, xs[:40])
+    if stats1.completed_by.get("parity", 0) == 0:
+        raise AssertionError(f"approxifer r=1: {stats1.completed_by}")
+    with uncounted():
+        check_served_approxifer(futs, xs[:40], params, fwd, spec1)
+    grew = {name: counts()[name] - before[name]
+            for name in ("berrut_encode", "parity_decode")}
+    if min(grew.values()) <= 0:
+        raise AssertionError(f"approxifer r=1 serve launches {grew}")
+    log(f"[byzantine] k=2 r=1 straggler: completed_by={stats1.completed_by}; "
+        f"answers equal the plain path; launches +{grew}")
+    return stats, stats1
+
+
+def check_served_approxifer(futs, xs, params, fwd, spec):
+    """Model answers equal the deployed model; rebuilt answers equal the
+    plain path's approxifer decode of the same member and parity outputs
+    (groups are consecutive qid pairs)."""
+    twin = get_scheme("approxifer", k=K, r=spec.r or 1, backend="torch",
+                      device=DEV)
+    with torch.inference_mode():
+        model = to_host(fwd(params, np.concatenate(xs)))
+        groups = np.stack(xs).reshape(len(xs) // K, K, *xs[0].shape)
+        for f in futs:
+            out = np.asarray(f.result())
+            if out.shape != (1, 10) or not np.isfinite(out).all():
+                raise AssertionError(f"qid {f.qid}: bad answer {out!r}")
+            g, j = divmod(f.qid, K)
+            if f.completed_by == "model":
+                want = model[f.qid:f.qid + 1]
+            else:
+                enc = twin.encode(groups[g])                  # [r, 1, ...]
+                pouts = torch.stack([fwd(params, enc[i])
+                                     for i in range(twin.r)])
+                outs = torch.as_tensor(model[g * K:(g + 1) * K, None],
+                                       device=DEV)
+                if twin.r == 1:
+                    want = to_host(twin.decode_one(pouts[0], outs, j))
+                else:
+                    want = plain_rebuilds(twin, pouts, outs, j)
+            if not any(np.allclose(out, w, atol=1e-3, rtol=1e-3)
+                       for w in np.reshape(want, (-1,) + out.shape)):
+                raise AssertionError(
+                    f"qid {f.qid} ({f.completed_by}): {out} is none of the "
+                    f"plain path's answers {want}")
+
+
+def plain_rebuilds(twin, pouts, outs, j):
+    """Member j rebuilt on the plain path from the other members and each
+    set of parity responses that can have been in hand when the decode ran:
+    the first parity to land makes the group recoverable, so one parity
+    alone, or all of them where they landed together."""
+    miss = np.arange(K) == j
+    sets = [np.arange(twin.r) == i for i in range(twin.r)]
+    sets.append(np.ones(twin.r, bool))
+    return np.stack([to_host(twin.decode(
+        pouts * torch.as_tensor(pa, device=DEV)[:, None, None], outs, miss,
+        pa))[j] for pa in sets])
+
+
+def kernel_entry(name, row, launches, by_path):
+    return {"name": name, "route": "cuda", "source": CSRC,
+            "replaces": row["replaces"], "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
+            "bound_by": row["bound"][1], "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"], "shape": row["shape"],
+            "launches_by_path": by_path}
+
+
+PATH1 = ("parity_encode", "fused_encode_forward", "parity_decode",
+         "multigroup_decode")
+PATH2 = ("parity_encode", "parity_decode", "multigroup_decode",
+         "learned_project", "berrut_encode")
+
+
 def main():
+    t0 = time.perf_counter()
     phase_device()
+    t1 = time.perf_counter()
+    log(f"[time] phase 1 device: {t1 - t0:.1f} s")
     n = sweep_kernels()
     log(f"[kernels] {n} sweep cases held against the plain versions")
     rows = measure_kernels()
+    t2 = time.perf_counter()
+    log(f"[time] phase 2 kernels: {t2 - t1:.1f} s")
 
+    # ---- path 1: coded MLP serving (phases 3-4)
     x, y, tmpl = cluster_images(3000, noise=2.0, seed=0, image_shape=IMG)
     xt, yt, _ = cluster_images(2000, noise=2.0, seed=1, templates=tmpl,
                                image_shape=IMG)
     for c in ops.counters().values():
         c.reset()
     params, fwd, pp, scheme, a_a, acc_par, lat = phase_serve(x, y, xt, yt)
-    before = {name: c.value for name, c in ops.counters().items()}
+    t3 = time.perf_counter()
+    log(f"[time] phase 3 serve: {t3 - t2:.1f} s")
+    before = counts()
     ad, pouts = a_d(scheme, params, pp, fwd, xt, yt)
-    launches = {name: c.value for name, c in ops.counters().items()}
+    path1 = counts()
     for name in ("fused_encode_forward", "multigroup_decode"):
-        if launches[name] <= before[name]:
+        if path1[name] <= before[name]:
             raise AssertionError(f"A_d phase did not launch {name}")
     log(f"[A_d] A_d={ad:.4f} over {len(xt) // K} groups; main-path "
-        f"launches {launches}")
-    missing = [name for name, v in launches.items() if v == 0]
+        f"launches {path1}")
+    missing = [name for name in PATH1 if path1[name] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+        raise AssertionError(f"kernels never launched on the MLP serving "
+                             f"path: {missing}")
 
     plain = get_scheme("sum", k=K, backend="torch", device=DEV)
     ad_plain, pouts_plain = a_d(plain, params, pp, fwd, xt, yt)
@@ -501,23 +811,49 @@ def main():
         f"err vs plain {err:.3e}")
     if not ad > 0.1 or abs(ad - ad_plain) > 0.01:
         raise AssertionError(f"A_d={ad} vs plain {ad_plain}")
+    t4 = time.perf_counter()
+    log(f"[time] phase 4 A_d: {t4 - t3:.1f} s")
+
+    # ---- path 2: the scheme registry on resnet18s (phases 5-7)
+    for c in ops.counters().values():
+        c.reset()
+    uncounted = Uncounted()
+    r_params, r_fwd, r_xt, r_a_a, scheme_rows = phase_schemes(uncounted)
+    t5 = time.perf_counter()
+    log(f"[time] phase 5 schemes: {t5 - t4:.1f} s")
+    errors = phase_errors()
+    t6 = time.perf_counter()
+    log(f"[time] phase 6 errors: {t6 - t5:.1f} s")
+    byz, straggle = phase_byzantine(r_params, r_fwd, r_xt, uncounted)
+    path2 = {name: v - uncounted.n[name] for name, v in counts().items()}
+    t7 = time.perf_counter()
+    log(f"[time] phase 7 byzantine: {t7 - t6:.1f} s")
+    log(f"[schemes] main-path launches {path2} (comparison launches left "
+        f"out: {dict(uncounted.n)})")
+    missing = [name for name in PATH2 if path2[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the scheme "
+                             f"registry's path: {missing}")
 
     kernels = []
     for name in ("parity_encode", "fused_encode_forward", "parity_decode",
-                 "multigroup_decode"):
-        row = rows[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": CSRC,
-            "replaces": row["replaces"], "launches": launches[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
-            "bound_by": row["bound"][1], "library_ms": row["library_ms"],
-            "device_ms": row["device_ms"], "shape": row["shape"]})
+                 "multigroup_decode", "learned_project", "berrut_encode"):
+        by_path = {"mlp_serving": path1[name], "schemes": path2[name]}
+        kernels.append(kernel_entry(name, rows[name],
+                                    path1[name] + path2[name], by_path))
     log(json.dumps({"summary": {
         "A_a": a_a, "A_d": ad, "A_d_plain": ad_plain,
         "parity_path_accuracy": acc_par,
         "p50_ms": float(np.percentile(lat, 50)),
-        "p99_ms": float(np.percentile(lat, 99))}}))
+        "p99_ms": float(np.percentile(lat, 99)),
+        "resnet18s_A_a": r_a_a, "resnet18s_schemes": scheme_rows,
+        "errors": {name: {str(rate): acc for rate, acc in per.items()}
+                   for name, per in errors.items()},
+        "byzantine": {"detected": byz.corrupted_detected,
+                      "corrected": byz.corrected,
+                      "completed_by": byz.completed_by},
+        "approxifer_r1_completed_by": straggle.completed_by,
+        "seconds": time.perf_counter() - t0}}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -29,6 +29,17 @@ import torch
 from repro_torch.convert import as_tensor, resolve_device
 
 
+def solve_or_nan(a, b):
+    """``torch.linalg.solve(a, b)`` for (batched) square ``a``, except that
+    a singular system gives NaN where ``torch.linalg.solve`` raises — what
+    JAX's solve returns.  The rule reads ``solve_ex``'s ``info`` with
+    ``torch.where`` on the device, so nothing syncs to the host, and it does
+    not rely on the solver to produce NaN by itself."""
+    x, info = torch.linalg.solve_ex(a, b)
+    bad = (info != 0).reshape(tuple(info.shape) + (1,) * (x.ndim - info.ndim))
+    return torch.where(bad, torch.full_like(x, float("nan")), x)
+
+
 def vandermonde(k: int, r: int) -> np.ndarray:
     """Coefficient matrix C [r, k]: C[j, i] = (i+1)**j.
 
@@ -144,7 +155,7 @@ class LinearDecoder:
         M = C * missing_mask.float()[None, :]            # [r, k]
         G = M.T @ M + 1e-9 * torch.eye(self.k, device=dev)
         mt_rhs = torch.einsum("rk,r...->k...", M, rhs)
-        sol = torch.linalg.solve(G, mt_rhs.reshape(self.k, -1)).reshape(
+        sol = solve_or_nan(G, mt_rhs.reshape(self.k, -1)).reshape(
             mt_rhs.shape)
         mm = missing_mask.reshape((self.k,) + (1,) * (outs.ndim - 1))
         return torch.where(mm, sol, outs)

@@ -167,6 +167,58 @@ class ParityTrainer:
         return params, losses
 
 
+def _train_joint(scheme, parity_fwd, init_fn, x, fx, epochs, seed, batch,
+                 opt=None, log_every=0):
+    """Joint encoder + parity objective for trainable schemes:
+    minimise  mean_j MSE( F_P_j( E_theta(X)_j ),  sum_i C[j,i] F(X_i) )
+    over (theta, parity params) together.  The decode targets stay the
+    linear ``coeffs`` combination, so the scheme's decode and
+    recoverability semantics hold for the trained encoder.  Grouping and
+    batch order come from ``np.random.default_rng(seed)`` exactly as in the
+    reference; parity params start from ``init_fn(seed + 17 * j)``.  Each
+    step is one autograd pass through ``scheme.encode_with_params`` (plain
+    torch) and one in-place Adam update on the scheme's device.
+
+    Returns ``(parity_params list, scheme.with_params(trained_theta),
+    losses)``."""
+    k, r = scheme.k, scheme.r
+    rng = np.random.default_rng(seed)
+    groups, order = group_queries(np.asarray(x), k, rng)        # [G, k, ...]
+    fxg = fx[order].reshape(groups.shape[0], k, *fx.shape[1:])
+    targets = np.einsum("rk,gk...->rg...", scheme.host_coeffs, fxg)
+    qk = np.ascontiguousarray(np.moveaxis(groups, 1, 0))        # [k, G, ...]
+    dev = torch.device(scheme.device)
+
+    def fresh(t):
+        return t.detach().clone().requires_grad_(True)
+    params = {"enc": tree_map(fresh, scheme.enc_params),
+              "parity": [tree_map(fresh, init_fn(seed + 17 * j))
+                         for j in range(r)]}
+    leaves = tree_leaves(params)
+    opt = opt or AdamConfig(lr=1e-3, weight_decay=1e-5)
+    state = adam_init(params, opt)
+    n_groups = groups.shape[0]
+    b = min(batch, n_groups)
+    losses = []
+    for ep in range(epochs):
+        order = rng.permutation(n_groups)
+        for i in range(0, n_groups - b + 1, b):
+            sel = order[i:i + b]
+            qb = as_tensor(qk[:, sel], dev)
+            tb = as_tensor(targets[:, sel], dev)
+            enc_q = scheme.encode_with_params(params["enc"], qb)
+            loss = sum(parity_mse(parity_fwd(params["parity"][j], enc_q[j]),
+                                  tb[j]) for j in range(r)) / r
+            grads = torch.autograd.grad(loss, leaves)
+            adam_update(list(grads), state, leaves, opt)
+            losses.append(loss.item())
+        if log_every:
+            print(f"  joint encoder+parity epoch {ep}: "
+                  f"loss={losses[-1]:.5f}")
+    frozen = tree_map(lambda t: t.detach(), params)
+    return frozen["parity"], scheme.with_params(frozen["enc"]), losses
+
+
 @dataclass
 class ParityTrainContext:
     """Everything a scheme's ``provision_parity`` hook may need: the
@@ -209,18 +261,20 @@ class ParityTrainContext:
 
 def default_provision(scheme, deployed_params, ctx: ParityTrainContext):
     """The stock provisioning path schemes delegate to: per-row MSE
-    distillation (paper §3.3).  ``model_agnostic`` schemes short-circuit to
-    r references of the deployed params.  Trainable encoders (the joint
-    encoder + parity objective) are not ported yet and raise."""
+    distillation (paper §3.3), or the joint encoder+parity objective for
+    ``trainable`` schemes (the trained scheme is published on
+    ``ctx.scheme``).  ``model_agnostic`` schemes short-circuit to r
+    references of the deployed params."""
     caps = scheme_capabilities(scheme)
     if caps.model_agnostic:
         return [deployed_params] * scheme.r
-    if caps.trainable:
-        raise NotImplementedError(
-            f"scheme {scheme.name!r} trains its encoder jointly with the "
-            f"parity models; the joint objective (repro.core.parity."
-            f"_train_joint) is not ported to repro_torch yet")
     fx = ctx.deployed_outputs(deployed_params)
+    if caps.trainable:
+        parity_params, trained, _ = _train_joint(
+            scheme, ctx.pfwd, ctx.init_fn, ctx.x_train, fx,
+            epochs=ctx.epochs, seed=ctx.seed, batch=ctx.batch)
+        ctx.scheme = trained
+        return parity_params
     rng = np.random.default_rng(ctx.seed)
     parity_params = []
     for j in range(scheme.r):
@@ -245,6 +299,13 @@ def train_parity_models(deployed_params, fwd, init_fn, x_train, k, r=None,
     and to the scheme's own r for instances — an explicit mismatch raises).
     ``init_fn(seed)`` builds a fresh parity model on the same device as the
     deployed params.
+
+    What provisioning means is the scheme's call: per-row distillation by
+    default (``sum``/``concat``/``replication``/``approx_backup``); the
+    joint encoder+parity objective for ``learned``, whose *returned scheme*
+    carries the trained encoder; r references to ``deployed_params`` for
+    ``approxifer`` and ``invnet``; a Fisher-weighted checkpoint merge for
+    ``fisher``.
 
     ``parity_fwd`` lets the parity model be a different architecture from
     the deployed model (the approx_backup scheme's cheap backup); defaults

@@ -27,6 +27,23 @@ Built-in entries:
 * ``approx_backup``— §5.2.6 approximate backups expressed as a degraded-
                      quality scheme: k = 1 groups, one cheap backup model per
                      group, decode is a passthrough of the backup output.
+* ``learned``      — ``repro_torch.core.learned.LearnedScheme``: a trainable
+                     encoder (Vandermonde base code + a small MLP residual
+                     over the coding dimension) trained jointly with the
+                     parity models; decode is the linear output code.
+* ``approxifer``   — ``repro_torch.core.approxifer.ApproxIFERScheme``: the
+                     rational-interpolation code; no parity model is trained
+                     (``model_agnostic``), the decoder adapts its arity to
+                     the responses that arrived and votes out erroneous ones
+                     when it holds surplus responses (``detects_errors``).
+* ``fisher``       — ``repro_torch.core.fisher.FisherScheme``: training-free
+                     parity models by Fisher-weighted merging of the deployed
+                     checkpoints (``checkpoint/io.py``); linear output code
+                     with row-stochastic coefficients.
+* ``invnet``       — ``repro_torch.core.invnet.InvNetScheme``: the linear
+                     code conducted in the latent space of an invertible
+                     additive-coupling network g (parities are
+                     g^-1(C @ g(x))); no parity training.
 
 Schemes live on a device (``device``, default ``"cuda"``; construction raises
 when no card is present and ``"cpu"`` was not asked for).  They take numpy
@@ -41,9 +58,10 @@ distillation default.
 
 ``backend="torch" | "kernels"`` selects the implementation of the hot paths:
 ``kernels`` (the default) routes encode / r=1 decode / the fused encode and
-first matmul / the batched decode through ``repro_torch.kernels.ops`` — the
-hand-written CUDA kernels on a CUDA device, their plain versions on the CPU
-— and ``torch`` runs plain tensor code.  The general r>1 least-squares decode
+first matmul / the batched decode / the learned and coupling projections /
+the approxifer encode through ``repro_torch.kernels.ops`` — the hand-written
+CUDA kernels on a CUDA device, their plain versions on the CPU — and
+``torch`` runs plain tensor code.  The general r>1 least-squares decode
 is always plain torch: a tiny [k, k] solve off the latency-critical path.
 """
 from __future__ import annotations
@@ -56,7 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import as_tensor, resolve_device
-from repro_torch.core.codes import ConcatEncoder, vandermonde
+from repro_torch.core.codes import ConcatEncoder, solve_or_nan, vandermonde
 
 BACKENDS = ("torch", "kernels")
 
@@ -378,7 +396,7 @@ class LinearScheme:
         G = M.T @ M + 1e-9 * torch.eye(self.k, device=self._dev)
         mt_rhs = torch.einsum("rk,r...->k...", M, rhs)
         flat = mt_rhs.reshape(self.k, -1)
-        sol = torch.linalg.solve(G, flat).reshape(mt_rhs.shape)  # [k, ...]
+        sol = solve_or_nan(G, flat).reshape(mt_rhs.shape)        # [k, ...]
         mm = missing_mask.reshape((self.k,) + (1,) * (outs.ndim - 1))
         return torch.where(mm, sol, outs)
 
@@ -609,3 +627,13 @@ register_scheme(
     # budget, which sizes the backup pool, not the group
     lambda k=None, r=None, backend="kernels", **kw: ApproxBackupScheme(
         backend=backend, **kw))
+
+# the other schemes live in their own modules and register themselves on
+# import; import at the bottom: they subclass LinearScheme or use this
+# module's helpers and call register_scheme from here
+from repro_torch.core import learned as _learned  # noqa: E402
+from repro_torch.core import approxifer as _approxifer  # noqa: E402
+from repro_torch.core import fisher as _fisher  # noqa: E402
+from repro_torch.core import invnet as _invnet  # noqa: E402
+
+del _learned, _approxifer, _fisher, _invnet

@@ -1,4 +1,4 @@
-// ParM's four coded hot-path kernels for Hopper (sm_90a), with a plain C
+// ParM's coded hot-path kernels for Hopper (sm_90a), with a plain C
 // interface loaded through ctypes (see repro_torch/kernels/_build.py).
 //
 // Every entry point takes device pointers and a cudaStream_t, launches on that
@@ -14,6 +14,9 @@
 //                      multigroup_decode
 //   fused_kernel       replaces repro/kernels/fused_encode_forward.py:
 //                      fused_encode_forward
+//   project_kernel     replaces repro/kernels/learned_encoder.py:
+//                      learned_project, and through it repro/kernels/
+//                      berrut_encoder.py:berrut_encode (W = C^T)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -251,6 +254,65 @@ void launch_fused(const void* x, const void* C, const void* w, void* out,
       static_cast<const TW*>(w), static_cast<TX*>(out), k, B, F, V);
 }
 
+// ------------------------------------------------------- learned project ---
+// out[j, e] = sum_h W[h, j] * H[h, e] over the flattened [B*F] element index
+// e, for every output row j (H [H, n], W [H, r] fp32, out [r, n]).
+//
+// Bound on the H100: device-memory bytes.  Each element is read H times and
+// written r times, with one multiply-add per (h, j) pair, so at the
+// main-path shapes (H = 16 hidden units or k = 2 queries, r <= 2) the
+// kernel does well under one FLOP per byte moved.
+// Design: one thread per output element in a grid-stride loop; neighbouring
+// threads read neighbouring addresses of each of the H input rows
+// (coalesced), and each thread accumulates up to kProjRows output rows in
+// fp32 registers, so every input value is read from device memory once for
+// all of them.  Larger r puts further row groups on gridDim.y (each re-reads
+// the input).  The block's W columns are staged in shared memory, where all
+// threads read the same word (a broadcast).  The ragged tail of B*F is the
+// loop bound, so no element outside [0, n) is touched.
+constexpr int kProjRows = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+project_kernel(const T* __restrict__ h, const float* __restrict__ w,
+               T* __restrict__ out, int H, int r, int64_t n) {
+  extern __shared__ float ws[];             // [H, rows] of this row group
+  const int j0 = blockIdx.y * kProjRows;
+  const int rows = min(kProjRows, r - j0);
+  for (int t = threadIdx.x; t < H * rows; t += blockDim.x)
+    ws[t] = w[(t / rows) * r + j0 + t % rows];
+  __syncthreads();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       e < n; e += stride) {
+    float acc[kProjRows];
+#pragma unroll
+    for (int j = 0; j < kProjRows; ++j) acc[j] = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < H; ++i) {
+      const float v = to_f32(h[i * n + e]);
+      const float* wi = ws + i * rows;
+#pragma unroll
+      for (int j = 0; j < kProjRows; ++j)
+        if (j < rows) acc[j] = fmaf(v, wi[j], acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kProjRows; ++j)
+      if (j < rows) out[(j0 + j) * n + e] = from_f32<T>(acc[j]);
+  }
+}
+
+template <typename T>
+void launch_project(const void* h, const void* w, void* out, int H, int r,
+                    int64_t n, cudaStream_t s) {
+  dim3 grid(blocks_for(n), (r + kProjRows - 1) / kProjRows);
+  const size_t smem = sizeof(float) * H * (r < kProjRows ? r : kProjRows);
+  project_kernel<T><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(h), static_cast<const float*>(w),
+      static_cast<T*>(out), H, r, n);
+}
+
 }  // namespace
 
 extern "C" {
@@ -316,6 +378,22 @@ int repro_fused_encode_forward(const void* x, const void* C, const void* w,
   } else if (dtype_x == 1 && dtype_w == 1) {
     launch_fused<__nv_bfloat16, __nv_bfloat16>(x, C, w, out, k, r, B, F, V,
                                                s);
+  } else {
+    return bad_dtype();
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h [H, n] (dtype); w [H, r] fp32, H * min(r, 8) <= 12288 (48 KB of
+// shared memory); out [r, n] in h's dtype
+int repro_learned_project(const void* h, const void* w, void* out, int H,
+                          int r, long long n, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || r <= 0) return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) {
+    launch_project<float>(h, w, out, H, r, n, s);
+  } else if (dtype == 1) {
+    launch_project<__nv_bfloat16>(h, w, out, H, r, n, s);
   } else {
     return bad_dtype();
   }

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "repro_multigroup_decode": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
     "repro_fused_encode_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _P],
+    "repro_learned_project": [_P, _P, _P, _I, _I, _LL, _I, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

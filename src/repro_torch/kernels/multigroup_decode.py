@@ -12,13 +12,14 @@ TPU kernel) with ``csrc/parity_kernels.cu:mg_decode_kernel``.
 
 ``multigroup_lstsq`` is the r>1 / multi-missing generalization, plain
 PyTorch as it was plain XLA in the reference: the masked least-squares decode
-of ALL stacked groups as batched normal equations and one
-``torch.linalg.solve``.
+of ALL stacked groups as batched normal equations and one batched solve (a
+singular group gives NaN, as in the reference, instead of raising).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.codes import solve_or_nan
 from repro_torch.kernels import _build
 
 launches = _build.LaunchCounter("multigroup_decode")
@@ -79,6 +80,5 @@ def multigroup_lstsq(coeffs, parity_outs, outputs, missing_masks,
     eye = torch.eye(k, dtype=torch.float32, device=M.device)
     gram = M.transpose(1, 2) @ M + 1e-9 * eye                    # [G, k, k]
     mt_rhs = torch.einsum("grk,gr...->gk...", M, rhs)
-    sol = torch.linalg.solve(gram, mt_rhs.reshape(G, k, -1)).reshape(
-        mt_rhs.shape)
+    sol = solve_or_nan(gram, mt_rhs.reshape(G, k, -1)).reshape(mt_rhs.shape)
     return torch.where(mm.reshape((G, k) + tail), sol, outs)

@@ -12,16 +12,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import berrut_encoder as _berrut
 from repro_torch.kernels import fused_encode_forward as _fused_ef
+from repro_torch.kernels import learned_encoder as _project
 from repro_torch.kernels import multigroup_decode as _mg_decode
 from repro_torch.kernels import parity_decode as _decode
 from repro_torch.kernels import parity_encode as _encode
 
 
 def counters():
-    """The four kernels' launch counters, by kernel name."""
+    """The kernels' launch counters, by kernel name (B3 and B6 share B4's
+    and B5's kernel but count their own launches)."""
     return {m.launches.name: m.launches
-            for m in (_encode, _fused_ef, _decode, _mg_decode)}
+            for m in (_encode, _fused_ef, _decode, _mg_decode, _project,
+                      _berrut)}
 
 
 def _on_card(t):
@@ -107,3 +111,29 @@ def multigroup_decode_op(parity_outs, outputs, missing_idxs, coeffs):
     else:
         out = ref.multigroup_decode_ref(po, outs, cmat)
     return out.reshape(parity_outs.shape)
+
+
+def berrut_encode_op(queries, coeffs):
+    """Approxifer encode projection: queries [k, B, ...] (any trailing
+    feature shape); coeffs [r, k] -> [r, B, ...], one launch for all r."""
+    k, B = queries.shape[:2]
+    flat = queries.reshape(k, B, -1)
+    c = _f32(coeffs, flat.device)
+    if _on_card(flat):
+        out = _berrut.berrut_encode(flat.contiguous(), c.contiguous())
+    else:
+        out = ref.learned_project_ref(flat, c.T)
+    return out.reshape((c.shape[0], B) + tuple(queries.shape[2:]))
+
+
+def learned_project_op(h, w):
+    """Learned-encoder final projection: h [H, B, ...] (any trailing feature
+    shape); w [H, r] -> [r, B, ...]."""
+    hd, B = h.shape[:2]
+    flat = h.reshape(hd, B, -1)
+    wf = _f32(w, flat.device)
+    if _on_card(flat):
+        out = _project.learned_project(flat.contiguous(), wf.contiguous())
+    else:
+        out = ref.learned_project_ref(flat, wf)
+    return out.reshape((wf.shape[1], B) + tuple(h.shape[2:]))

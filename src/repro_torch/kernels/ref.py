@@ -33,6 +33,14 @@ def fused_encode_forward_ref(queries, coeffs, weights):
     return out.to(queries.dtype)
 
 
+def learned_project_ref(h, w):
+    """h [H, B, F]; w [H, r] -> [r, B, F]: out[j] = sum_h w[h, j] h[h]
+    (fp32 accumulate, h's dtype).  The approxifer encode is this with
+    ``w = C^T``."""
+    acc = torch.einsum("hr,hbf->rbf", w.float(), h.float())
+    return acc.to(h.dtype)
+
+
 def multigroup_decode_ref(parity_outs, outputs, cmat):
     """parity_outs [G, B, V]; outputs [G, k, B, V]; cmat [G, k+1] (per-group
     availability-masked coeffs, 0 at the missing index, with 1/c_missing

@@ -360,7 +360,7 @@ class SimSession(Session):
             batch_max_size=spec.batching.max_size)
         self._last = simulate(cfg, spec.strategy, scheme=scheme,
                               scenario=spec.scenario, backend=spec.backend,
-                              controller=spec.controller)
+                              controller=spec.controller, device=spec.device)
         return self._last
 
     def submit(self, x, qid=None) -> PredictionFuture:

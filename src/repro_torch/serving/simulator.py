@@ -763,7 +763,7 @@ def _fast_recon(pred, g, gk, t, dec, dct, kneed, g_resp, g_done, g_par,
 
 
 def simulate(cfg: SimConfig, strategy="parm", scheme=None, scenario=None,
-             backend=None, controller=None):
+             backend=None, controller=None, device="cuda"):
     """Run the DES under a ``ResilienceStrategy`` (instance or registered
     name).  ``scheme`` (instance or name) overrides the strategy's default
     code for coded strategies; ``scenario`` (instance or name) overrides the
@@ -779,7 +779,10 @@ def simulate(cfg: SimConfig, strategy="parm", scheme=None, scenario=None,
     clock, as events, so the differential battery can assert identical
     decision sequences against the threads engine.  Returns a
     ``ServingReport`` (typed, dict-compatible) with latency percentiles and
-    bookkeeping."""
+    bookkeeping.  ``device`` is where registry-name schemes (the
+    deployment's and a controller's escalation target) are resolved, as
+    every entry point of the port: ``"cuda"`` unless the caller asks for
+    ``"cpu"``.  The DES itself runs no device work."""
     strat = get_strategy(strategy)
     rng = np.random.default_rng(cfg.seed)
     k = cfg.k                               # redundancy budget (pool sizing)
@@ -792,7 +795,7 @@ def simulate(cfg: SimConfig, strategy="parm", scheme=None, scenario=None,
     # (mirrors ParMFrontend, which defaults r to the instance's value)
     resolved = get_scheme(want, k=k,
                           r=cfg.r if isinstance(want, str) else None,
-                          backend=backend)
+                          backend=backend, device=device)
     # the CURRENT deployment knobs — mutable, because a controller may
     # retune them mid-run; new coding groups capture them at assembly
     cur = {"schm": None, "r": cfg.r, "gk": k, "enc_ms": cfg.encode_ms,
@@ -1034,7 +1037,8 @@ def simulate(cfg: SimConfig, strategy="parm", scheme=None, scenario=None,
                 # name), re-enabling identity-routing to the trained pools
                 new = base_schm
             else:
-                new = get_scheme(name, k=k, r=want_r, backend=backend)
+                new = get_scheme(name, k=k, r=want_r, backend=backend,
+                                 device=device)
                 if not scheme_capabilities(new).model_agnostic:
                     raise ValueError(
                         f"controller adjustment to scheme {name!r} "

@@ -7,7 +7,8 @@ available.  Run on a GPU machine with
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: fp32 2e-5, bf16 2e-2; the fused kernel scaled by sqrt(F*k),
-decodes by k."""
+decodes by k, the projection kernel (B5, B6) by 4 as in the reference's
+``tests/test_kernels.py``."""
 import math
 
 import pytest
@@ -89,3 +90,34 @@ def test_fused_encode_forward_kernel(cuda, k, r, B, F, V, dt):
     _close(ops.fused_encode_forward_op(q, C, W),
            ref.fused_encode_forward_ref(q, C, W), _tol(dt) * mul,
            _tol(dt) * mul)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("H,r,B,F", [(8, 1, 4, 512), (16, 3, 2, 257),
+                                     (16, 1, 200, 3072), (8, 1, 400, 1536),
+                                     (4, 11, 3, 1000)])
+def test_learned_project_kernel(cuda, H, r, B, F, dt):
+    """B5, including r above the 8 rows one launch row group holds."""
+    h = torch.randn((H, B, F), generator=cuda, device="cuda").to(dt)
+    w = torch.randn((H, r), generator=cuda, device="cuda")
+    before = ops.counters()["learned_project"].value
+    got = ops.learned_project_op(h, w)
+    torch.cuda.synchronize()
+    assert ops.counters()["learned_project"].value == before + 1
+    _close(got, ref.learned_project_ref(h, w), _tol(dt) * 4, _tol(dt) * 4)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("k,r,B,F", [(2, 1, 200, 3072), (2, 2, 200, 3072),
+                                     (3, 2, 4, 130), (2, 1, 1, 3072)])
+def test_berrut_encode_kernel(cuda, k, r, B, F, dt):
+    """B6: B5's kernel with W = C^T, counted under its own name."""
+    q = torch.randn((k, B, F), generator=cuda, device="cuda").to(dt)
+    c = torch.randn((r, k), generator=cuda, device="cuda")
+    cnt = ops.counters()
+    before = (cnt["berrut_encode"].value, cnt["learned_project"].value)
+    got = ops.berrut_encode_op(q, c)
+    torch.cuda.synchronize()
+    assert (cnt["berrut_encode"].value,
+            cnt["learned_project"].value) == (before[0] + 1, before[1])
+    _close(got, ref.learned_project_ref(q, c.T), _tol(dt) * 4, _tol(dt) * 4)

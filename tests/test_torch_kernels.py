@@ -126,6 +126,55 @@ def test_fused_encode_forward_trailing_feature_shape():
            jops.fused_encode_forward_op(jq, jnp.asarray(C), jw), 2e-5 * 16)
 
 
+@pytest.mark.parametrize("H,r,B,F,dt", [
+    (8, 1, 4, 512, "f32"), (16, 2, 1, 128, "f32"), (16, 3, 2, 257, "f32"),
+    (32, 2, 8, 1000, "bf16"),
+])
+def test_learned_project(H, r, B, F, dt):
+    """B5's plain version and op against the reference's interpret-mode op
+    (the cases of the reference's ``test_learned_project``, tolerance 4x
+    the dtype's), including the 4-D trailing feature shape."""
+    rng = np.random.default_rng(H * 13 + r)
+    jh, th = _both(rng.normal(size=(H, B, F)).astype(np.float32), dt)
+    w = rng.normal(size=(H, r)).astype(np.float32)
+    want = jops.learned_project_op(jh, jnp.asarray(w))
+    got = ops.learned_project_op(th, torch.tensor(w))
+    assert got.dtype == th.dtype and tuple(got.shape) == want.shape
+    _close(got, want, _tol(dt) * 4)
+    _close(ref.learned_project_ref(th, torch.tensor(w)), want, _tol(dt) * 4)
+    jh4, th4 = _both(rng.normal(size=(H, B, 4, 6)).astype(np.float32))
+    got4 = ops.learned_project_op(th4, torch.tensor(w))
+    assert tuple(got4.shape) == (r, B, 4, 6)
+    _close(got4, jops.learned_project_op(jh4, jnp.asarray(w)), 2e-4)
+
+
+@pytest.mark.parametrize("k,r,shape", [(2, 1, (3, 8)), (3, 2, (1, 4, 4, 1)),
+                                       (4, 2, (2, 130)), (2, 2, (9, 5))])
+def test_berrut_encode(k, r, shape):
+    """B6 (B5 with W = C^T) against the reference's op, over the shapes of
+    the reference's approxifer tests (tolerance 1e-4, theirs)."""
+    rng = np.random.default_rng(3 * k + r)
+    jq, tq = _both(rng.normal(size=(k,) + shape).astype(np.float32))
+    c = rng.normal(size=(r, k)).astype(np.float32)
+    want = jops.berrut_encode_op(jq, jnp.asarray(c))
+    got = ops.berrut_encode_op(tq, torch.tensor(c))
+    assert tuple(got.shape) == (r,) + shape
+    _close(got, want, 1e-4)
+
+
+def test_berrut_encode_unbatched_vector():
+    """The approxifer encode of an unbatched [k, F] group on both packages'
+    kernel route."""
+    from repro.core.scheme import get_scheme as j_get_scheme
+    from repro_torch.core.scheme import get_scheme
+    q = np.random.default_rng(0).normal(size=(3, 7)).astype(np.float32)
+    want = j_get_scheme("approxifer", k=3, backend="pallas").encode(
+        jnp.asarray(q))
+    got = get_scheme("approxifer", k=3, device="cpu").encode(q)
+    assert tuple(got.shape) == (1, 7)
+    _close(got, want, 1e-4)
+
+
 @pytest.mark.parametrize("G,k,B,V", [(1, 2, 1, 9), (5, 3, 4, 100),
                                      (4, 4, 2, 257), (20, 2, 1, 10)])
 def test_multigroup_decode(G, k, B, V):
@@ -192,9 +241,12 @@ def test_cpu_ops_launch_no_kernel():
     ops.multigroup_decode_op(torch.ones(4, 5), torch.ones(4, 2, 5),
                              np.array([0, 1, 0, 1]), torch.ones(2))
     ops.fused_encode_forward_op(q, torch.ones(1, 2), torch.ones(1, 5, 7))
+    ops.learned_project_op(q, torch.ones(2, 3))
+    ops.berrut_encode_op(q, torch.ones(3, 2))
     assert {n: c.value for n, c in ops.counters().items()} == before
     assert set(before) == {"parity_encode", "parity_decode",
-                           "multigroup_decode", "fused_encode_forward"}
+                           "multigroup_decode", "fused_encode_forward",
+                           "learned_project", "berrut_encode"}
 
 
 def test_other_devices_raise():
@@ -207,7 +259,8 @@ def test_other_devices_raise():
 def test_kernel_wrappers_reject_cpu_tensors():
     """A kernel wrapper never runs a plain version: handed a CPU tensor it
     raises before touching the build."""
-    from repro_torch.kernels import (fused_encode_forward, multigroup_decode,
+    from repro_torch.kernels import (berrut_encoder, fused_encode_forward,
+                                     learned_encoder, multigroup_decode,
                                      parity_decode, parity_encode)
     q = torch.ones(2, 3, 5)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -222,6 +275,10 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_encode_forward.fused_encode_forward(q, torch.ones(1, 2),
                                                   torch.ones(1, 5, 7))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        learned_encoder.learned_project(q, torch.ones(2, 3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        berrut_encoder.berrut_encode(q, torch.ones(3, 2))
 
 
 def _port_sources():

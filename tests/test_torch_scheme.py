@@ -174,10 +174,11 @@ def test_recoverable_rows(name, r):
 
 
 def test_registry_names_and_errors():
-    assert tscheme.list_schemes() == ["approx_backup", "concat",
-                                      "replication", "sum"]
+    assert tscheme.list_schemes() == ["approx_backup", "approxifer",
+                                      "concat", "fisher", "invnet",
+                                      "learned", "replication", "sum"]
     assert tscheme.available_schemes() == tscheme.list_schemes()
-    assert set(tscheme.list_schemes()) <= set(jscheme.list_schemes())
+    assert tscheme.list_schemes() == jscheme.list_schemes()
     with pytest.raises(KeyError, match="unknown coding scheme"):
         tscheme.get_scheme("nope", k=2, device="cpu")
     with pytest.raises(ValueError, match="requires k"):
