@@ -1,0 +1,10 @@
+"""SmolLM-135M — llama-architecture small dense model.
+[hf:HuggingFaceTB/SmolLM-135M]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-135m", family="dense",
+    n_layers=30, d_model=576, n_heads=9, n_kv_heads=3,
+    d_ff=1536, vocab=49152, tie_embeddings=True,
+    source="hf:HuggingFaceTB/SmolLM-135M",
+)

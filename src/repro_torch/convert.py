@@ -64,10 +64,22 @@ def to_host(x):
     return np.asarray(x)
 
 
+def _leaf_to_tensor(a, dev):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own: JAX's bf16 leaves arrive as
+        # ml_dtypes.bfloat16, which torch.tensor cannot read.  Widen to
+        # float32 and narrow on the torch side; both steps are exact.
+        return torch.tensor(a.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    return torch.tensor(np.array(a), device=dev)
+
+
 def params_from_numpy(tree, device="cuda"):
-    """Tree of numpy leaves -> the same tree of tensors on ``device``."""
+    """Tree of numpy leaves -> the same tree of tensors on ``device``
+    (bfloat16 leaves stay bfloat16)."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.tensor(np.array(a), device=dev), tree)
+    return tree_map(lambda a: _leaf_to_tensor(a, dev), tree)
 
 
 def params_to_numpy(tree):

@@ -32,13 +32,18 @@ LINK_FLAGS = (*ARCH, "-shared")
 
 # ctypes signatures of the C entry points (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints and cut them)
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 _SIGNATURES = {
     "repro_parity_encode": [_P, _P, _P, _I, _LL, _I, _P],
     "repro_multigroup_decode": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
     "repro_fused_encode_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _P],
     "repro_learned_project": [_P, _P, _P, _I, _I, _LL, _I, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _I, _P],
+    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -166,6 +171,15 @@ def require_cuda(name, *tensors):
                 f"got {[str(u.device) for u in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel inputs must be contiguous")
+
+
+def require_aligned(name, *tensors):
+    """Validate 16-byte aligned data pointers (kernels that load 16 bytes
+    at a time)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel inputs must start 16-byte "
+                             f"aligned")
 
 
 def stream(device):

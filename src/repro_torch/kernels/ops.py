@@ -9,10 +9,13 @@ wrappers (``counters()``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import berrut_encoder as _berrut
+from repro_torch.kernels import decode_attention as _decode_attn
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_encode_forward as _fused_ef
 from repro_torch.kernels import learned_encoder as _project
 from repro_torch.kernels import multigroup_decode as _mg_decode
@@ -25,7 +28,7 @@ def counters():
     and B5's kernel but count their own launches)."""
     return {m.launches.name: m.launches
             for m in (_encode, _fused_ef, _decode, _mg_decode, _project,
-                      _berrut)}
+                      _berrut, _flash, _decode_attn)}
 
 
 def _on_card(t):
@@ -137,3 +140,34 @@ def learned_project_op(h, w):
     else:
         out = ref.learned_project_ref(flat, wf)
     return out.reshape((wf.shape[1], B) + tuple(h.shape[2:]))
+
+
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (a copy where a view is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_op(q, k, v, *, causal=True, window=0):
+    """Prefill attention: q [B,Sq,H,hd]; k,v [B,Sk,KV,hd] -> [B,Sq,H,hd];
+    query row i sits at position i (no q_offset)."""
+    if _on_card(q):
+        return _flash.flash_attention(_aligned(q), _aligned(k), _aligned(v),
+                                      causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def decode_attention_op(q, k_cache, v_cache, pos):
+    """One-token decode attention: q [B,H,hd]; caches [B,S,KV,hd]; pos a
+    scalar or [B] per-row positions (int, numpy or tensor); valid slots
+    j <= pos[b]."""
+    if not _on_card(q):
+        return ref.decode_attention_ref(q, k_cache, v_cache, pos)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device=q.device, dtype=torch.int32)
+    elif isinstance(pos, (int, np.integer)):
+        pos = torch.full((), int(pos), dtype=torch.int32, device=q.device)
+    else:
+        pos = torch.as_tensor(np.asarray(pos, np.int32), device=q.device)
+    return _decode_attn.decode_attention(_aligned(q), _aligned(k_cache),
+                                         _aligned(v_cache), pos)

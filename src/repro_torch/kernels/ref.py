@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the CUDA kernels on the coded serving path.
+"""Plain PyTorch versions of the CUDA kernels (B1-B8).
 
 Each accumulates in fp32 and returns the input dtype, like the kernel it
 stands beside.  The CPU path of ``kernels/ops.py`` runs these, and the chip
@@ -49,3 +49,47 @@ def multigroup_decode_ref(parity_outs, outputs, cmat):
     s = torch.einsum("gk,gkbv->gbv", cmat[:, :k].float(), outputs.float())
     inv = cmat[:, k].float()[:, None, None]
     return ((parity_outs.float() - s) * inv).to(parity_outs.dtype)
+
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """q [B,Sq,H,hd]; k,v [B,Sk,KV,hd] -> [B,Sq,H,hd] in q's dtype: naive
+    softmax in fp32, head h reading kv-head h // (H // KV).  Query row i sits
+    at position i (no offset); masked scores are -1e30."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    qg = q.float().reshape(B, Sq, KV, rep, hd) * hd ** -0.5
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float())
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kpos <= qpos
+    if window:
+        valid &= kpos > qpos - window
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, pos):
+    """q [B,H,hd]; caches [B,S,KV,hd]; pos a scalar or [B] per-row positions
+    (valid slots: kpos <= pos[b]) -> [B,H,hd] in q's dtype, all in fp32.
+
+    Unlike the JAX package's oracle, which broadcasts a vector ``pos``
+    along the wrong axis, a ``[B]`` pos masks row b by ``pos[b]``."""
+    B, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    rep = H // KV
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    qg = q.float().reshape(B, KV, rep, hd) * hd ** -0.5
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float())
+    valid = torch.arange(S, device=q.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
+    return o.reshape(B, H, hd).to(q.dtype)

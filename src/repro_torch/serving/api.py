@@ -391,3 +391,12 @@ def deploy(spec: DeploymentSpec, engine: str = "threads") -> Session:
         return SimSession(spec)
     raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
 
+
+
+def deploy_lm(spec, engine: str = "threads"):
+    """Generation sibling of ``deploy``: takes a ``GenerationSpec`` and
+    returns a coded LM serving session (token-level continuous batching,
+    per-step parity reconstruction — ``repro_torch.serving.generation``).
+    Lazy import so one-shot deployments never pay for the generation stack."""
+    from repro_torch.serving.generation import deploy_lm as _deploy_lm
+    return _deploy_lm(spec, engine)

@@ -7,8 +7,8 @@ available.  Run on a GPU machine with
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: fp32 2e-5, bf16 2e-2; the fused kernel scaled by sqrt(F*k),
-decodes by k, the projection kernel (B5, B6) by 4 as in the reference's
-``tests/test_kernels.py``."""
+decodes by k, the projection kernel (B5, B6) by 4, the attention kernels
+(B7, B8) bf16 3e-2, as in the reference's ``tests/test_kernels.py``."""
 import math
 
 import pytest
@@ -121,3 +121,86 @@ def test_berrut_encode_kernel(cuda, k, r, B, F, dt):
     assert (cnt["berrut_encode"].value,
             cnt["learned_project"].value) == (before[0] + 1, before[1])
     _close(got, ref.learned_project_ref(q, c.T), _tol(dt) * 4, _tol(dt) * 4)
+
+
+# B7 / B8: tolerance 2e-5 in fp32 and 3e-2 in bf16, as the reference's
+# attention kernel tests
+def _attn_tol(dt):
+    return 3e-2 if dt == torch.bfloat16 else 2e-5
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window,dt", [
+    (2, 128, 128, 4, 2, 64, True, 0, torch.float32),
+    (1, 256, 256, 4, 4, 64, True, 64, torch.float32),
+    (2, 100, 100, 2, 1, 32, False, 0, torch.float32),
+    (1, 128, 128, 8, 2, 128, True, 0, torch.bfloat16),
+    (1, 1000, 1000, 14, 2, 64, True, 0, torch.bfloat16),
+    (3, 33, 47, 6, 3, 128, False, 16, torch.float32),
+    (1, 1, 1, 14, 2, 64, True, 0, torch.bfloat16),
+    (2, 70, 70, 4, 2, 32, True, 5, torch.bfloat16),
+])
+def test_flash_attention_kernel(cuda, B, Sq, Sk, H, KV, hd, causal, window,
+                                dt):
+    """B7, with ragged Sq / Sk edges, a window and one-token prompts."""
+    q = torch.randn((B, Sq, H, hd), generator=cuda, device="cuda").to(dt)
+    k = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(dt)
+    v = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(dt)
+    before = ops.counters()["flash_attention"].value
+    got = ops.flash_attention_op(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.counters()["flash_attention"].value == before + 1
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window), _attn_tol(dt), 0.0)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,pos,dt", [
+    (2, 512, 4, 2, 64, 100, torch.float32),
+    (1, 1024, 8, 1, 32, 1023, torch.float32),
+    (3, 256, 2, 2, 64, 0, torch.float32),
+    (2, 384, 4, 4, 128, 200, torch.bfloat16),
+    (4, 1280, 14, 2, 64, [300, 1279, 5, 700], torch.bfloat16),
+    (3, 16, 4, 2, 64, [2, 9, 5], torch.float32),
+    (2, 100, 32, 2, 128, [99, 5000], torch.float32),
+    (1, 64, 16, 1, 32, [63], torch.bfloat16),
+])
+def test_decode_attention_kernel(cuda, B, S, H, KV, hd, pos, dt):
+    """B8 with scalar and per-row pos, one and many splits of the sweep, a
+    pos past the end of the cache, and rep up to 16."""
+    q = torch.randn((B, H, hd), generator=cuda, device="cuda").to(dt)
+    kc = torch.randn((B, S, KV, hd), generator=cuda, device="cuda").to(dt)
+    vc = torch.randn((B, S, KV, hd), generator=cuda, device="cuda").to(dt)
+    before = ops.counters()["decode_attention"].value
+    got = ops.decode_attention_op(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert ops.counters()["decode_attention"].value == before + 1
+    _close(got, ref.decode_attention_ref(q, kc, vc, pos), _attn_tol(dt), 0.0)
+
+
+def test_reduced_lm_kernels_match_torch_backend(cuda):
+    """Reduced qwen2-0.5b in fp32 on the card: prefill and vector-pos decode
+    logits and caches through B7/B8 equal the online-softmax twins within
+    2e-4."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import tree_leaves
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen2-0.5b", reduced=True)
+    params = T.init_params(cfg, 0, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (3, 20), generator=cuda,
+                         device="cuda")
+    out = {}
+    cnt = ops.counters()
+    before = (cnt["flash_attention"].value, cnt["decode_attention"].value)
+    for backend in ("kernels", "torch"):
+        c = cfg.replace(attn_backend=backend)
+        with torch.inference_mode():
+            last, cache = T.prefill(c, params, tokens=toks[:, :12],
+                                    cache_len=24)
+            pos = torch.tensor([12, 5, 9], device="cuda")
+            logits, cache = T.decode_step(c, params, cache, pos,
+                                          token=toks[:, 12:13])
+        out[backend] = (last, logits, tree_leaves(cache))
+    assert cnt["flash_attention"].value == before[0] + cfg.n_layers
+    assert cnt["decode_attention"].value == before[1] + cfg.n_layers
+    for a, b in zip([*out["kernels"][:2], *out["kernels"][2]],
+                    [*out["torch"][:2], *out["torch"][2]]):
+        _close(a, b, 2e-4, 2e-4)

@@ -243,10 +243,14 @@ def test_cpu_ops_launch_no_kernel():
     ops.fused_encode_forward_op(q, torch.ones(1, 2), torch.ones(1, 5, 7))
     ops.learned_project_op(q, torch.ones(2, 3))
     ops.berrut_encode_op(q, torch.ones(3, 2))
+    att = torch.ones(1, 4, 2, 32)
+    ops.flash_attention_op(att, att, att)
+    ops.decode_attention_op(att[:, 0], att, att, 2)
     assert {n: c.value for n, c in ops.counters().items()} == before
     assert set(before) == {"parity_encode", "parity_decode",
                            "multigroup_decode", "fused_encode_forward",
-                           "learned_project", "berrut_encode"}
+                           "learned_project", "berrut_encode",
+                           "flash_attention", "decode_attention"}
 
 
 def test_other_devices_raise():
@@ -259,7 +263,8 @@ def test_other_devices_raise():
 def test_kernel_wrappers_reject_cpu_tensors():
     """A kernel wrapper never runs a plain version: handed a CPU tensor it
     raises before touching the build."""
-    from repro_torch.kernels import (berrut_encoder, fused_encode_forward,
+    from repro_torch.kernels import (berrut_encoder, decode_attention,
+                                     flash_attention, fused_encode_forward,
                                      learned_encoder, multigroup_decode,
                                      parity_decode, parity_encode)
     q = torch.ones(2, 3, 5)
@@ -279,6 +284,13 @@ def test_kernel_wrappers_reject_cpu_tensors():
         learned_encoder.learned_project(q, torch.ones(2, 3))
     with pytest.raises(ValueError, match="CUDA tensors"):
         berrut_encoder.berrut_encode(q, torch.ones(3, 2))
+    att = torch.ones(1, 4, 2, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention.flash_attention(att, att, att)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        decode_attention.decode_attention(
+            att[:, 0].contiguous(), att, att,
+            torch.tensor(2, dtype=torch.int32))
 
 
 def _port_sources():
