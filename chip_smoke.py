@@ -33,8 +33,9 @@ Phases, in order; any failure exits non-zero:
                r=1, sum, 4 slots per instance, 8 requests of 256-1024 prompt
                tokens, 16 new tokens each), once without and once with a
                straggling member; tokens held against an uncoded greedy loop,
-               the kernel path's logits against the "torch" backend's, and
-               the measured decode step beside the H100 roofline.
+               the kernel path's logits against the "torch" backend's, every
+               B7 launch held to its tensor-core route, and the measured
+               prefill and decode step beside the H100 roofline.
 
 The launch counters are zeroed before each of the three paths (phases 3-4, the
 coded MLP serving path; phases 5-7, the scheme registry's path; phase 8, coded
@@ -52,6 +53,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -157,6 +159,22 @@ def device_ms(fn, kernel, iters=50):
     return total / iters / 1e3 if count and total else None
 
 
+def device_ops(fn, iters=20):
+    """Device operations (kernels, copies, fills) that ``iters`` calls of
+    ``fn`` issue under torch.profiler, counted by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+
+
 def bound(nbytes, flops, dtype):
     """Least time the card could take: the larger of bytes over the memory
     rate and operations over the peak rate for the operand type."""
@@ -209,9 +227,43 @@ def phase_device():
     _build.library()
     log(f"[device] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name, regs, spills in ptxas_report(_build.build_log):
+        log(f"  ptxas: {name}: {regs} registers, {spills}")
+
+
+def ptxas_report(text):
+    """(kernel, registers, spill line) for each entry function in nvcc's
+    ``-Xptxas=-v`` output, the kernel named as in the source (e.g.
+    ``flash_wgmma_kernel<64>``)."""
+    rows, name, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and name is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            rows.append((name, regs.group(1) if regs else "?", spills))
+            name = None
+    return rows
+
+
+def kernel_name(sym):
+    """The innermost name of a mangled kernel symbol (``_ZN<len><id>...``)
+    with its template arguments (bf16, float, integers)."""
+    i, name = sym.find("N") + 1, sym
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        name, i = sym[j:j + int(sym[i:j])], j + int(sym[i:j])
+    args = re.match(r"I(.*?)EE", sym[i:])
+    if not args:
+        return name
+    names = {"13__nv_bfloat16": "bf16", "f": "float"}
+    toks = re.findall(r"13__nv_bfloat16|Li\d+|f", args.group(1))
+    return f"{name}<{', '.join(names.get(t, t[2:]) for t in toks)}>"
 
 
 # ------------------------------------------------------------ phase 2 ----
@@ -232,13 +284,13 @@ def sweep_kernels():
         for dt in (torch.float32, torch.bfloat16):
             outs = randn(gen, (k, B, V), dt)
             par = randn(gen, (B, V), dt)
-            c = torch.arange(1.0, k + 1.0, device=DEV)
+            c = np.arange(1.0, k + 1.0, dtype=np.float32)   # host values
             for j in range(k):
-                avail = c * (torch.arange(k, device=DEV) != j)
+                avail = torch.tensor(c * (np.arange(k) != j), device=DEV)
                 check_close(f"decode {k,B,V,dt} j={j}",
                             ops.parity_decode_op(par, outs, j, coeffs=c),
                             ref.parity_decode_ref(par, outs, avail,
-                                                  1.0 / c[j]),
+                                                  1.0 / float(c[j])),
                             tol(dt) * k, 2e-2)
                 n += 1
     for k, r, B, F, V in [(2, 1, 4, 512, 128), (3, 1, 5, 300, 130),
@@ -303,16 +355,22 @@ def sweep_kernels():
             (2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 4, 4, 64, True, 64),
             (2, 100, 100, 2, 1, 32, False, 0), (1, 128, 128, 8, 2, 128, True, 0),
             (3, 33, 47, 6, 3, 128, False, 16), (2, 70, 70, 4, 2, 32, True, 5),
-            (1, 1, 1, 14, 2, 64, True, 0)]:
+            (1, 1, 1, 14, 2, 64, True, 0), (2, 129, 129, 14, 2, 128, True, 0),
+            (1, 910, 910, 14, 2, 64, True, 0)]:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(gen, (B, Sq, H, hd), dt)
             k = randn(gen, (B, Sk, KV, hd), dt)
             v = randn(gen, (B, Sk, KV, hd), dt)
             kw = dict(causal=causal, window=window)
+            route = k_flash.route_launches[k_flash.ROUTES[dt]]
+            before = route.value
             check_close(f"flash_attention {B,Sq,Sk,H,KV,hd,causal,window,dt}",
                         ops.flash_attention_op(q, k, v, **kw),
                         ref.flash_attention_ref(q, k, v, **kw), attn_tol(dt),
                         0.0)
+            if route.value != before + 1:
+                raise AssertionError(f"flash_attention {dt}: not on the "
+                                     f"{k_flash.ROUTES[dt]} route")
             n += 1
     for B, S, H, KV, hd, pos in [
             (2, 512, 4, 2, 64, 100), (1, 1024, 8, 1, 32, 1023),
@@ -341,6 +399,14 @@ def sdpa(q, k, v, **kw):
         q, k, v, enable_gqa=True, **kw)
 
 
+def library_device_ms(fn, iters=50):
+    """Device time per call of a library call, summed over every device
+    operation it issues (its kernels carry the library's names)."""
+    fn()
+    _, busy, _ = device_profile(lambda: [fn() for _ in range(iters)])
+    return busy / iters * 1e3
+
+
 def attention_rows(gen):
     """B7 and B8 at the shapes the LM path gives them, in bf16: B7 on the
     longest prompt of phase 8, B8 on a full serving step's cache pool with
@@ -362,10 +428,12 @@ def attention_rows(gen):
                                 attn_tol(bf), 0.0),
         ms=time_ms(lambda: k_flash.flash_attention(q, k, v), iters=50),
         device_ms=device_ms(lambda: k_flash.flash_attention(q, k, v),
-                            "flash_kernel"),
+                            "flash_wgmma_kernel"),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=20),
         library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
                            iters=50),
+        library_device_ms=library_device_ms(
+            lambda: sdpa(qt, kt, vt, is_causal=True)),
         library_err=lib_err,
         # q and out, k and v once each; QK^T and PV, 2 hd each per kept pair
         bound=bound(2 * (B * P * H * hd + B * P * KV * hd) * 2,
@@ -393,6 +461,8 @@ def attention_rows(gen):
                             ("decode_kernel", "decode_combine_kernel")),
         plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, pos)),
         library_ms=time_ms(lambda: sdpa(q4, kt, vt, attn_mask=mask)),
+        library_device_ms=library_device_ms(
+            lambda: sdpa(q4, kt, vt, attn_mask=mask)),
         library_err=lib_err,
         # q and out once, each valid cache row of k and v once, pos
         bound=bound(2 * B * H * hd * 2 + 2 * valid * KV * hd * 2 + B * 4,
@@ -424,26 +494,51 @@ def measure_kernels():
         library_ms=time_ms(lambda: torch.einsum("k,kbf->bf", c, q)),
         bound=bound((k + 1) * B * F * es + k * 4, 2 * k * B * F, f32))
 
-    # B3: one group's decode, 10 logits per member
+    # B3: one group's decode, 10 logits per member, with the k + 1
+    # coefficients as host values (launch parameters); also timed as the op
+    # and as LinearScheme.decode_one (the MLP path's rebuild) call it
     k, B, V = K, 1, 10
     outs = randn(gen, (k, B, V), f32)
     par = randn(gen, (B, V), f32)
-    c = torch.ones(k, device=DEV)
-    avail = c * (torch.arange(k, device=DEV) != 0)
-    inv_c = 1.0 / c[0]
+    c = np.ones(k, np.float32)
+    avail = c * (np.arange(k) != 0)
+    inv_c = np.float32(1.0) / c[0]
+    avail_d = torch.tensor(avail, device=DEV)
     stack = torch.cat([par[None], outs])
-    w = torch.cat([inv_c.reshape(1), -avail * inv_c])
-    got = k_dec.parity_decode(par, outs, avail, inv_c)
-    want = ref.parity_decode_ref(par, outs, avail, inv_c)
+    w = torch.cat([torch.tensor([inv_c], device=DEV), -avail_d * inv_c])
+    sum_code = get_scheme("sum", k=k, device=DEV)
+
+    def b3():
+        return k_dec.parity_decode(par, outs, avail, inv_c)
+
+    def b3_op():
+        return ops.parity_decode_op(par, outs, 0, coeffs=c)
+
+    def b3_scheme():
+        return sum_code.decode_one(par, outs, 0)
+
+    want = ref.parity_decode_ref(par, outs, avail_d, inv_c)
+    for label, fn in (("wrapper", b3), ("op", b3_op),
+                      ("decode_one", b3_scheme)):
+        check_close(f"B3 {label}", fn().reshape(want.shape), want, 2e-5 * k,
+                    2e-2)
+        seen = device_ops(fn)
+        if len(seen) != 1 or sum(seen.values()) != 20 or \
+                "parity_decode_kernel" not in next(iter(seen)):
+            raise AssertionError(f"B3 {label}: 20 calls issued {seen} on "
+                                 f"the device, not 20 launches of "
+                                 f"parity_decode_kernel")
+    log("[kernels] parity_decode: 20 calls of the wrapper, of the op and of "
+        "LinearScheme.decode_one each issue 20 launches of "
+        "parity_decode_kernel and no other device operation")
     rows["parity_decode"] = dict(
         shape=[k, B, V], replaces="src/repro/kernels/parity_decode.py:28",
-        max_abs_err=check_close("B3", got, want, 2e-5 * k, 2e-2),
-        ms=time_ms(lambda: k_dec.parity_decode(par, outs, avail, inv_c)),
-        device_ms=device_ms(
-            lambda: k_dec.parity_decode(par, outs, avail, inv_c),
-            "mg_decode_kernel"),
+        max_abs_err=check_close("B3", b3(), want, 2e-5 * k, 2e-2),
+        ms=time_ms(b3), op_ms=time_ms(b3_op),
+        decode_one_ms=time_ms(b3_scheme),
+        device_ms=device_ms(b3, "parity_decode_kernel"),
         plain_ms=time_ms(
-            lambda: ref.parity_decode_ref(par, outs, avail, inv_c)),
+            lambda: ref.parity_decode_ref(par, outs, avail_d, inv_c)),
         library_ms=time_ms(lambda: torch.einsum("k,kbv->bv", w, stack)),
         bound=bound((k + 2) * B * V * es + (k + 1) * 4,
                     (2 * k + 1) * B * V, f32))
@@ -544,9 +639,14 @@ def measure_kernels():
                 f"plain_ms={one['plain_ms']:.5f} "
                 f"library_ms={one['library_ms']:.5f} "
                 f"bound_ms={one['bound'][0]:.6f} ({one['bound'][1]})")
+    b3 = rows["parity_decode"]
+    log(f"[kernels] parity_decode with host coefficients: wrapper "
+        f"ms={b3['ms']:.5f}, parity_decode_op ms={b3['op_ms']:.5f}, "
+        f"LinearScheme.decode_one ms={b3['decode_one_ms']:.5f}")
     for name in ("flash_attention", "decode_attention"):
         log(f"[kernels] {name} library call (scaled_dot_product_attention) "
-            f"max abs err vs plain {rows[name]['library_err']:.3e}")
+            f"max abs err vs plain {rows[name]['library_err']:.3e}, device "
+            f"ms={rows[name]['library_device_ms']:.5f}")
     return rows
 
 
@@ -893,9 +993,9 @@ LM_SLOTS, LM_SEQ, LM_NEW, LM_REQUESTS = 4, 1280, 16, 8
 # where the loop decodes one, so the sums round differently in bf16.
 LM_GAP_TOL = 0.1
 # max |logit| difference between the kernel path and the "torch" backend on
-# one teacher-forced sequence: B7/B8 keep P in fp32 where the torch twin
-# casts it to bf16 before P.V, and the difference passes through 24 bf16
-# layers
+# one teacher-forced sequence: B8 keeps P in fp32 where the torch twin casts
+# it to bf16 before P.V (B7, like the twin, rounds it to bf16, but against
+# other running maxima), and the difference passes through 24 bf16 layers
 LM_LOGIT_TOL = 0.1
 
 
@@ -1008,6 +1108,21 @@ def decode_step_ms(cfg, params, pos):
     return (time.perf_counter() - t0) / 20 * 1e3
 
 
+def prefill_ms(cfg, params, prompt):
+    """Host-clock time of one full-width prefill of ``prompt`` at batch 1
+    into a cache of LM_SEQ positions, synchronized, mean of 5 after a
+    warm-up."""
+    toks = torch.tensor([prompt], device=DEV)
+    with torch.inference_mode():
+        T.prefill(cfg, params, tokens=toks, cache_len=LM_SEQ)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            T.prefill(cfg, params, tokens=toks, cache_len=LM_SEQ)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 5 * 1e3
+
+
 def device_profile(fn):
     """Run ``fn`` under torch.profiler: (wall s, device-busy s, device
     operations launched), the last two summed over the device-side events
@@ -1055,7 +1170,7 @@ def phase_lm():
         raise AssertionError(f"lm: kernel logits {err} from the torch "
                              f"backend's")
 
-    for c in ops.counters().values():
+    for c in [*ops.counters().values(), *k_flash.route_launches.values()]:
         c.reset()
     uncounted = Uncounted()
     futs, clean, setup_s, serve_s = lm_serve(cfg, params, prompts, 10_000.0)
@@ -1072,8 +1187,10 @@ def phase_lm():
     # the decode step alone, while no serving thread runs, and where a
     # served token's time goes (uncounted)
     pos = [len(p) + LM_NEW // 2 for p in prompts[:LM_SLOTS]]
+    longest = max(prompts, key=len)
     with uncounted():
         step_ms = decode_step_ms(cfg, params, pos)
+        pre_ms = prefill_ms(cfg, params, longest)
         cache = T.init_cache(cfg, LM_SLOTS, LM_SEQ, device=DEV)
         tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEV)
 
@@ -1124,13 +1241,23 @@ def phase_lm():
         f"match the loop's in {agree:.2%} of places (the sum parity is an "
         f"approximation for a nonlinear model)")
     path3 = {name: v - uncounted.n[name] for name, v in counts().items()}
+    routes = {name: c.value for name, c in k_flash.route_launches.items()}
+    if routes != {"wgmma": counts()["flash_attention"], "simt": 0}:
+        raise AssertionError(f"lm: B7 launches by route {routes}, of "
+                             f"{counts()['flash_attention']} in phase 8: not "
+                             f"all on the tensor-core route")
+    log(f"[lm] B7 on the LM path: {path3['flash_attention']} launches, every "
+        f"launch of phase 8 on the tensor-core route (comparison runs "
+        f"included: {routes})")
 
     kv_len = int(np.mean(pos)) + 1
     roof_ms = 1e3 * decode_token_cost(cfg, batch=LM_SLOTS, kv_len=kv_len)
     log(f"[roofline] decode step batch {LM_SLOTS} at pos {pos}: measured "
         f"{step_ms:.3f} ms (host clock, synchronized, mean of 20); H100 SXM "
         f"roofline decode_token_cost(batch={LM_SLOTS}, kv_len={kv_len}) "
-        f"{roof_ms:.4f} ms; ratio {step_ms / roof_ms:.1f}; serving "
+        f"{roof_ms:.4f} ms; ratio {step_ms / roof_ms:.1f}; prefill of the "
+        f"longest prompt ({len(longest)} tokens, batch 1) {pre_ms:.3f} ms "
+        f"(host clock, synchronized, mean of 5); serving "
         f"inter-token p50 {clean.inter_token_p50_ms:.2f} ms with "
         f"{K} members and a parity instance on threads")
     return path3, dict(
@@ -1144,6 +1271,8 @@ def phase_lm():
                    "p50_ms": strag.inter_token_p50_ms,
                    "p99_ms": strag.p99_ms},
         logit_err=err, decode_step_ms=step_ms, roofline_ms=roof_ms,
+        prefill_ms=pre_ms, prefill_tokens=len(longest),
+        flash_routes={"wgmma": path3["flash_attention"], "simt": 0},
         decode_step_device_ms=step_busy / 3 * 1e3,
         decode_step_device_ops=step_ops / 3,
         serve_device_busy_share=serve_busy / serve_wall)
@@ -1157,7 +1286,9 @@ def kernel_entry(name, row, launches, by_path):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"], "shape": row["shape"],
-            "launches_by_path": by_path}
+            "launches_by_path": by_path,
+            **{key: row[key] for key in ("op_ms", "decode_one_ms",
+                                         "library_device_ms") if key in row}}
 
 
 PATH1 = ("parity_encode", "fused_encode_forward", "parity_decode",

@@ -153,8 +153,12 @@ class ApproxIFERScheme:
             beta, alpha = one[j, self.k], one[j, :self.k - 1]
             cvec[j, j] = 1.0 / beta
             cvec[j, np.arange(self.k) != j] = -alpha / beta
+        # kept on the host too: the decode kernel takes them as launch
+        # parameters
+        host = cvec.astype(np.float32)
+        object.__setattr__(self, "_decode_one_c_host", host)
         object.__setattr__(self, "_decode_one_c", torch.tensor(
-            cvec, dtype=torch.float32, device=self._dev))
+            host, device=self._dev))
 
     @property
     def coeffs(self):
@@ -224,10 +228,11 @@ class ApproxIFERScheme:
         """r=1 hot path: the refit through (k - 1 members + the parity) is
         a fixed linear combination per missing index, so it routes through
         the same subtraction-decode kernel as the linear codes."""
-        c = self._decode_one_c[missing_idx]                     # [k]
         outs, po = self._t(outputs), self._t(parity_out)
         if self.backend == "kernels":
-            return _kernel_decode_one(po, outs, missing_idx, c)
+            return _kernel_decode_one(po, outs, missing_idx,
+                                      self._decode_one_c_host[missing_idx])
+        c = self._decode_one_c[missing_idx]                     # [k]
         mask = torch.arange(self.k, device=self._dev) != missing_idx
         avail_sum = torch.einsum("k,k...->...", c * mask, outs.float())
         return (po.float() - avail_sum) / c[missing_idx]

@@ -246,7 +246,8 @@ def _kernel_decode_many(parity_outs, outputs, missing_idxs, coeffs):
 
 
 def _kernel_decode_one(parity_out, outputs, missing_idx, coeffs):
-    """Route the r=1 subtraction decode through the decode kernel."""
+    """Route the r=1 subtraction decode through the decode kernel; coeffs
+    [k] are host values (the kernel takes them as launch parameters)."""
     from repro_torch.kernels import ops
     outs, po = outputs, parity_out
     k = outs.shape[0]
@@ -336,7 +337,8 @@ class LinearScheme:
         / c_j."""
         outs, po = self._t(outputs), self._t(parity_out)
         if self.backend == "kernels":
-            return _kernel_decode_one(po, outs, missing_idx, self.coeffs[0])
+            return _kernel_decode_one(po, outs, missing_idx,
+                                      self.host_coeffs[0])
         c = self.coeffs[0]                                      # [k]
         mask = torch.arange(self.k, device=self._dev) != missing_idx
         avail_sum = torch.einsum("k,k...->...", c * mask, outs.float())

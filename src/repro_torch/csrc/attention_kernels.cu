@@ -4,16 +4,19 @@
 // Every entry point takes device pointers and a cudaStream_t, launches on that
 // stream without synchronising, allocates nothing (the wrapper allocates the
 // output and any scratch), and returns cudaGetLastError() so the Python
-// wrapper can raise on a refused launch.  Element types: dtype code 0 =
-// float32, 1 = bfloat16.  Scores, the online softmax and every accumulation
-// run in fp32; the output is written in the input type.
+// wrapper can raise on a refused launch (a negative code is a failed driver
+// call, see repro_error_string).  Element types: dtype code 0 = float32, 1 =
+// bfloat16.  Scores, the online softmax and every accumulation run in fp32;
+// the output is written in the input type.
 //
 // Kernels in this file:
-//   flash_kernel          replaces repro/kernels/flash_attention.py:
-//                         flash_attention (B7, prefill attention)
+//   flash_wgmma_kernel    replace repro/kernels/flash_attention.py:
+//   flash_kernel          flash_attention (B7, prefill attention): bf16 on
+//                         the tensor cores (wgmma fed by TMA), fp32 in SIMT
 //   decode_kernel         replaces repro/kernels/decode_attention.py:
 //   decode_combine_kernel decode_attention (B8, one-token attention over a
 //                         KV cache), the second pass of a split sweep
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -111,16 +114,17 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// ----------------------------------------------------------------- flash ---
+// ------------------------------------------------------------ flash, fp32 --
 // out[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h / rep]) v[b, j, ...]
 // over the keys j that the masks keep: j < Sk, j <= i (causal) and
 // j > i - window (sliding window).  q [B, Sq, H, hd], k/v [B, Sk, KV, hd].
 //
-// Bound on the H100: at the prefill shapes (Sq = Sk up to ~1k, hd 64) the
-// work is ~Sq^2 H hd operations against ~(Sq H + 2 Sk KV) hd bytes, so the
-// bound is operations.  This first port computes in SIMT fp32 (the fp32
-// tests hold it to 2e-5, which tensor-core bf16/TF32 inputs would not meet),
-// so in practice it is bound by shared-memory traffic feeding the FMAs.
+// The fp32 route of B7 (bf16 takes flash_wgmma_kernel below).  Bound on the
+// H100: at the prefill shapes (Sq = Sk up to ~1k, hd 64) the work is
+// ~Sq^2 H hd operations against ~(Sq H + 2 Sk KV) hd bytes, so the bound is
+// operations.  It computes in SIMT fp32 (the fp32 tests hold it to 2e-5,
+// which tensor-core bf16/TF32 inputs would not meet), so in practice it is
+// bound by shared-memory traffic feeding the FMAs.
 // Design: the TPU kernel carries m / l / acc across a sequential KV grid
 // axis; Hopper blocks run in parallel, so a block owns one (b, h, 32-row
 // query tile) and loops over 32-key tiles itself, with m / l / acc in
@@ -261,6 +265,449 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o[d + 2] = from_f32<T>(acc[j].z / den);
       o[d + 3] = from_f32<T>(acc[j].w / den);
     }
+  }
+}
+
+// ------------------------------------------------------------ flash, bf16 --
+// The bf16 route of B7: the function flash_kernel computes, on the tensor
+// cores.  Replaces repro/kernels/flash_attention.py:flash_attention for bf16
+// q / k / v.
+//
+// Bound on the H100: operations.  At the main-path shape (q [1, 910, 14, 64],
+// k / v [1, 910, 2, 64], causal) the mask keeps 414,505 (query, key) pairs
+// per head; QK^T and PV take 4 hd operations a pair, 1.49 GFLOP, 1.50 us at
+// 989 TFLOP/s, against 3.7 MB read and written (1.1 us at 3.35 TB/s).  A
+// 910-token prompt makes only 210 blocks of 64 query rows, ~4 key tiles of
+// 128 each on average (8 for the longest), so the pace is set by one tile's
+// latency (two short wgmma chains and the softmax between them) and by the
+// longest, diagonal blocks, not by the 1.5 us.  The design keeps both
+// products on the tensor cores, copies tile t + 1 while tile t computes, and
+// launches the longest causal blocks first.
+// Design: one warpgroup (128 threads) owns one (b, h, 64-row query tile).
+// - TMA: Q is copied once; K / V tiles of 128 keys stream through a ring of
+//   two stages in shared memory, one mbarrier per stage, and thread 0 issues
+//   the copy of tile t + 1 before the warpgroup waits for tile t.  The
+//   tensor maps are 4-D over [B, S, heads, hd] with a (1, rows, 1, hd) box,
+//   so a ragged Sq / Sk edge is zero-filled by the copy engine and never
+//   reads the next batch row or head.  The swizzle follows the row width:
+//   64B for hd 32, 128B for hd 64, two 64-column boxes with 128B for hd 128;
+//   tiles start on 1024-byte boundaries.
+// - S = Q K^T: wgmma m64n128k16, Q and K (stored [128 keys][hd], the
+//   K-major B operand) from shared memory, hd / 16 k-steps.  Scores are
+//   scaled in fp32 after the product (hd^-0.5 is not exact in bf16 for hd 32
+//   or 128), by scale * log2(e), so the softmax runs on exp2.
+// - O += P V: wgmma m64n{hd}k16 with P from registers: the fp32 scores of a
+//   thread are rounded to bf16 pairs in the A operand's register layout (as
+//   FlashAttention-3 does; the one rounding the fp32 route does not make),
+//   and V ([128 keys][hd], MN-major) from shared memory with the transpose
+//   bit, 8 k-steps.
+// - m, l and O stay in fp32 registers.  A row's scores sit on the 4 threads
+//   of a quad, so its max and sum take two __shfl_xor_sync.
+// - Masks: tiles wholly above the diagonal or left of the window are never
+//   loaded; only a tile that a mask crosses, or that passes Sk (a
+//   zero-filled key scores 0, not -1e30), tests each element, with row and
+//   column from the accumulator's fragment layout.  A masked score gives
+//   p = 0, so a row whose first tiles are wholly masked keeps m = -1e30,
+//   l = 0, O = 0.
+// - Tiles of 128 keys, not 64: on the main-path shape the kernel took 5%
+//   less device time (PERF.md); 145 KB of shared memory at hd 128.
+// - A copy that never lands (a bad tensor map) traps after ~2 s instead of
+//   hanging the card.
+constexpr int kTcThreads = 128;   // one warpgroup
+constexpr int kTcBQ = 64;         // query rows per block: wgmma's M
+constexpr int kTcBK = 128;        // keys per tile: the N of S = Q K^T
+constexpr long long kHangCycles = 4000000000LL;   // ~2 s: mbar_wait traps
+
+// Columns per TMA box (one swizzle row of 64 or 128 bytes) and the wgmma
+// descriptor's matching layout type (1 = 128B swizzle, 2 = 64B).
+template <int HD> struct TcLayout;
+template <> struct TcLayout<32> {
+  static constexpr int kBox = 32, kSwizzle = 2;
+};
+template <> struct TcLayout<64> {
+  static constexpr int kBox = 64, kSwizzle = 1;
+};
+template <> struct TcLayout<128> {
+  static constexpr int kBox = 64, kSwizzle = 1;
+};
+
+// Q, two stages of K and V, three mbarriers, and room to align to 1024
+template <int HD>
+constexpr int tc_smem_bytes() {
+  return (kTcBQ + 4 * kTcBK) * HD * 2 + 3 * 8 + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > kHangCycles) {
+      __trap();
+    }
+  }
+}
+
+// One TMA box of a 4-D map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (in 16-byte units) and the swizzle layout type
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo, uint32_t layout) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(layout) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator above the wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, A and B K-major in shared
+// memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 32] += A[64 x 16] . B[16 x 32], A (bf16 pairs) in registers,
+// B MN-major in shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A (bf16 pairs) in registers,
+// B MN-major in shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A (bf16 pairs) in registers,
+// B MN-major in shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// Copy the K and V tiles of keys [k0, k0 + kTcBK) of kv-head g, batch row b,
+// into one ring stage (K, then V), completing on that stage's barrier
+template <int HD>
+__device__ __forceinline__ void load_kv_tile(uint8_t* stage,
+                                             const CUtensorMap* tk,
+                                             const CUtensorMap* tv,
+                                             uint64_t* bar, int g, int k0,
+                                             int b) {
+  constexpr int BOX = TcLayout<HD>::kBox, T_BYTES = kTcBK * HD * 2;
+  mbar_expect_tx(bar, 2 * T_BYTES);
+#pragma unroll
+  for (int x = 0; x < HD / BOX; ++x) {
+    tma_load(stage + x * kTcBK * BOX * 2, tk, bar, x * BOX, g, k0, b);
+    tma_load(stage + T_BYTES + x * kTcBK * BOX * 2, tv, bar, x * BOX, g, k0,
+             b);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                   __grid_constant__ const CUtensorMap tk,
+                   __grid_constant__ const CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
+                   int KV, int causal, int window, float scale_log2) {
+  constexpr int BOX = TcLayout<HD>::kBox;
+  constexpr int SWZ = TcLayout<HD>::kSwizzle;
+  constexpr int NBOX = HD / BOX;          // boxes per row of a tile
+  constexpr int ROW = BOX * 2;            // bytes per box row (the swizzle)
+  constexpr int KPB = BOX / 16;           // k-steps per box
+  constexpr int Q_BYTES = kTcBQ * HD * 2, T_BYTES = kTcBK * HD * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* kv = qs + Q_BYTES;   // stage s: K at kv + 2 s T_BYTES, V after it
+  uint64_t* bar = reinterpret_cast<uint64_t*>(kv + 4 * T_BYTES);  // Q, s0, s1
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;   // longest first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the key tiles any row of this block can see
+  const int q_last = min(q0 + kTcBQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = window ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / kTcBK, t_end = (k_end + kTcBK - 1) / kTcBK;
+
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_init(&bar[2], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar[0], Q_BYTES);
+#pragma unroll
+    for (int x = 0; x < NBOX; ++x)
+      tma_load(qs + x * kTcBQ * ROW, &tq, &bar[0], x * BOX, h, q0, b);
+    if (t_begin < t_end)
+      load_kv_tile<HD>(kv, &tk, &tv, &bar[1], kvh, t_begin * kTcBK, b);
+  }
+
+  // accumulator fragment: this thread holds rows row0 and row0 + 8 of the
+  // tile, columns 8 j + col0 and + 1 of every 8 (element 4 j + e: row
+  // e >> 1, column e & 1)
+  const int row0 = q0 + warp * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(&bar[0], 0);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int i = t - t_begin, stage = i & 1;
+    // the other stage held tile t - 1, whose reads ended at the last
+    // iteration's __syncthreads
+    if (tid == 0 && t + 1 < t_end)
+      load_kv_tile<HD>(kv + (stage ^ 1) * 2 * T_BYTES, &tk, &tv,
+                       &bar[1 + (stage ^ 1)], kvh, (t + 1) * kTcBK, b);
+    mbar_wait(&bar[1 + stage], (i >> 1) & 1);
+    const uint8_t* ks = kv + stage * 2 * T_BYTES;
+    const uint8_t* vs = ks + T_BYTES;
+
+    float s[kTcBK / 2];
+#pragma unroll
+    for (int j = 0; j < kTcBK / 2; ++j) s[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int off = (kk % KPB) * 32;
+      wgmma_ss(s,
+               smem_desc(qs + (kk / KPB) * kTcBQ * ROW + off, 16, 8 * ROW,
+                         SWZ),
+               smem_desc(ks + (kk / KPB) * kTcBK * ROW + off, 16, 8 * ROW,
+                         SWZ),
+               kk > 0);
+    }
+    wgmma_commit_wait();
+    reg_fence(s);
+
+    const int kb = t * kTcBK;
+    const bool edge = kb + kTcBK > Sk ||
+                      (causal && kb + kTcBK - 1 > q0) ||
+                      (window && kb <= q_last - window);
+#pragma unroll
+    for (int j = 0; j < kTcBK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * scale_log2;
+        if (edge) {
+          const int row = row0 + 8 * (e >> 1);
+          const int col = kb + 8 * j + col0 + (e & 1);
+          bool ok = col < Sk;
+          if (causal) ok = ok && col <= row;
+          if (window) ok = ok && col > row - window;
+          if (!ok) x = kNegInf;
+        }
+        s[4 * j + e] = x;
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kTcBK / 8; ++j)
+        mt = fmaxf(mt, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m[r], mt);
+      corr[r] = exp2f(m[r] - m_new);
+      float lt = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTcBK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int idx = 4 * j + 2 * r + c;
+          const float p = s[idx] == kNegInf ? 0.f : exp2f(s[idx] - m_new);
+          s[idx] = p;
+          lt += p;
+        }
+      }
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      l[r] = l[r] * corr[r] + lt;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+    // P as the A operand of m64nNk16: k-step kk takes score columns
+    // 16 kk .. 16 kk + 15, i.e. accumulator chunks 2 kk and 2 kk + 1
+    uint32_t pa[kTcBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk)
+      wgmma_rs(o, pa[kk],
+               smem_desc(vs + kk * 16 * ROW, kTcBK * ROW, 8 * ROW, SWZ));
+    wgmma_commit_wait();
+    reg_fence(o);
+    __syncthreads();                     // this stage's reads are done
+  }
+
+  const int64_t q_row = static_cast<int64_t>(H) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow =
+        out + (static_cast<int64_t>(b) * Sq + row) * q_row + h * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] / den,
+                                o[4 * j + 2 * r + 1] / den);
   }
 }
 
@@ -474,6 +921,87 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver at run time through the
+// runtime's cudaGetDriverEntryPoint (no link against libcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// Negative return codes of the entry points: a driver call failed
+constexpr int kErrNoEncode = -1;        // no cuTensorMapEncodeTiled
+constexpr int kErrEncode = -1000;       // minus the CUresult of the encode
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 [B, S, heads, HD] tensor, innermost
+// first, with boxes of (kBox columns, 1 head, `rows` positions, 1 batch row)
+template <int HD>
+CUresult encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
+                    int S, int heads, int rows) {
+  const cuuint64_t dim[4] = {static_cast<cuuint64_t>(HD),
+                             static_cast<cuuint64_t>(heads),
+                             static_cast<cuuint64_t>(S),
+                             static_cast<cuuint64_t>(B)};
+  const cuuint64_t stride[3] = {dim[0] * 2, dim[0] * dim[1] * 2,
+                                dim[0] * dim[1] * dim[2] * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(TcLayout<HD>::kBox), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dim, stride, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             TcLayout<HD>::kBox == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int HD>
+int launch_flash_wgmma(const void* q, const void* k, const void* v, void* out,
+                       int B, int Sq, int Sk, int H, int KV, int causal,
+                       int window, float scale, cudaStream_t st) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return kErrNoEncode;
+  // with no keys no K / V tile is loaded: map q, whose extents are valid
+  const bool no_keys = Sk == 0;
+  CUtensorMap tq, tk, tv;
+  CUresult res = encode_map<HD>(enc, &tq, q, B, Sq, H, kTcBQ);
+  if (res == CUDA_SUCCESS)
+    res = encode_map<HD>(enc, &tk, no_keys ? q : k, B, no_keys ? Sq : Sk,
+                         no_keys ? H : KV, kTcBK);
+  if (res == CUDA_SUCCESS)
+    res = encode_map<HD>(enc, &tv, no_keys ? q : v, B, no_keys ? Sq : Sk,
+                         no_keys ? H : KV, kTcBK);
+  if (res != CUDA_SUCCESS) return kErrEncode - static_cast<int>(res);
+  constexpr int smem = tc_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + kTcBQ - 1) / kTcBQ, H, B);
+  flash_wgmma_kernel<HD><<<grid, kTcThreads, smem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal,
+      window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int HD>
 cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
                           const void* pos, void* out, void* part_ml,
@@ -505,25 +1033,30 @@ cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
 extern "C" {
 
 // q [B, Sq, H, hd], k/v [B, Sk, KV, hd] -> out [B, Sq, H, hd]; hd in
-// {32, 64, 128}, H a multiple of KV.
+// {32, 64, 128}, H a multiple of KV.  The route follows the dtype: bf16
+// runs flash_wgmma_kernel (tensor cores, TMA), fp32 flash_kernel (SIMT).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* out, int B, int Sq, int Sk, int H, int KV,
                           int hd, int causal, int window, float scale,
                           int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH(T, HD)                                                  \
-  return launch_flash<T, HD>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, \
-                             scale, st)
   if (dtype == 0) {
-    if (hd == 32) REPRO_FLASH(float, 32);
-    if (hd == 64) REPRO_FLASH(float, 64);
-    if (hd == 128) REPRO_FLASH(float, 128);
-  } else {
-    if (hd == 32) REPRO_FLASH(__nv_bfloat16, 32);
-    if (hd == 64) REPRO_FLASH(__nv_bfloat16, 64);
-    if (hd == 128) REPRO_FLASH(__nv_bfloat16, 128);
-  }
+#define REPRO_FLASH(HD)                                                     \
+  return static_cast<int>(launch_flash<float, HD>(                          \
+      q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, st))
+    if (hd == 32) REPRO_FLASH(32);
+    if (hd == 64) REPRO_FLASH(64);
+    if (hd == 128) REPRO_FLASH(128);
 #undef REPRO_FLASH
+  } else if (dtype == 1) {
+#define REPRO_FLASH(HD)                                                     \
+  return launch_flash_wgmma<HD>(q, k, v, out, B, Sq, Sk, H, KV, causal,     \
+                                window, scale, st)
+    if (hd == 32) REPRO_FLASH(32);
+    if (hd == 64) REPRO_FLASH(64);
+    if (hd == 128) REPRO_FLASH(128);
+#undef REPRO_FLASH
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

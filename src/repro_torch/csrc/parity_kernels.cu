@@ -5,21 +5,25 @@
 // stream without synchronising, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 // Element types: dtype code 0 = float32, 1 = bfloat16.  All arithmetic and
-// every accumulation runs in fp32; coefficients arrive as fp32 device arrays.
+// every accumulation runs in fp32; coefficients arrive as fp32 device arrays,
+// except parity_decode's, which arrive by value as launch parameters.
 //
 // Kernels in this file:
-//   encode_kernel      replaces repro/kernels/parity_encode.py:parity_encode
-//   mg_decode_kernel   replaces repro/kernels/parity_decode.py:parity_decode
-//                      (G = 1) and repro/kernels/multigroup_decode.py:
-//                      multigroup_decode
-//   fused_kernel       replaces repro/kernels/fused_encode_forward.py:
-//                      fused_encode_forward
-//   project_kernel     replaces repro/kernels/learned_encoder.py:
-//                      learned_project, and through it repro/kernels/
-//                      berrut_encoder.py:berrut_encode (W = C^T)
+//   encode_kernel         replaces repro/kernels/parity_encode.py:
+//                         parity_encode
+//   parity_decode_kernel  replaces repro/kernels/parity_decode.py:
+//                         parity_decode
+//   mg_decode_kernel      replaces repro/kernels/multigroup_decode.py:
+//                         multigroup_decode
+//   fused_kernel          replaces repro/kernels/fused_encode_forward.py:
+//                         fused_encode_forward
+//   project_kernel        replaces repro/kernels/learned_encoder.py:
+//                         learned_project, and through it repro/kernels/
+//                         berrut_encoder.py:berrut_encode (W = C^T)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -77,7 +81,8 @@ encode_kernel(const T* __restrict__ q, const float* __restrict__ c,
 // out[g, e] = (P[g, e] - sum_i cmat[g, i] * O[g, i, e]) * cmat[g, k]
 // cmat[g] holds the code coefficients with a 0 at the missing index and
 // 1/c_missing appended, so the "which member is missing" choice is data and
-// one kernel serves every missing pattern (G = 1 is the single-group decode).
+// one kernel serves every missing pattern (the single-group decode, whose
+// coefficients live on the host, is parity_decode_kernel below).
 //
 // Bound on the H100: device-memory bytes (k+1 reads and one write per
 // element).  At the serving shapes (G<=4, k=2, B<=4, V=10) and on the A_d path
@@ -101,6 +106,39 @@ mg_decode_kernel(const T* __restrict__ p, const T* __restrict__ o,
     float acc = to_f32(p[e]);
     for (int i = 0; i < k; ++i) acc -= to_f32(og[i * n]) * __ldg(cg + i);
     out[e] = from_f32<T>(acc * __ldg(cg + k));
+  }
+}
+
+// ------------------------------------------------------ one-group decode ---
+// out[e] = (P[e] - sum_i c[i] * O[i, e]) * c[k], the G = 1 case of the
+// decode above, with c = (avail_0 .. avail_{k-1}, 1 / c_missing) passed by
+// value.
+//
+// Bound on the H100: the launch.  The serving shape ([2, 1, 10]) moves
+// 160 bytes, a few ns at 3.35 TB/s, against a device time of ~1.5 us, so
+// what a call costs is the host's launch work.  The coefficients are
+// computed on the host (the scheme keeps them there) and copied into the
+// kernel's parameter space, so the call issues one launch and nothing else:
+// no device op builds them, and no copy moves them to the card.
+// Design: as mg_decode_kernel, one thread per element, grid-stride; every
+// thread reads the same few coefficient words from parameter space.
+constexpr int kMaxDecodeK = 32;
+struct DecodeCoeffs {
+  float c[kMaxDecodeK + 1];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+parity_decode_kernel(const T* __restrict__ p, const T* __restrict__ o,
+                     T* __restrict__ out, const DecodeCoeffs cf, int k,
+                     int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       e < n; e += stride) {
+    float acc = to_f32(p[e]);
+    for (int i = 0; i < k; ++i) acc -= to_f32(o[i * n + e]) * cf.c[i];
+    out[e] = from_f32<T>(acc * cf.c[k]);
   }
 }
 
@@ -338,6 +376,31 @@ int repro_parity_encode(const void* q, const void* c, void* out, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// parity_out [n]; outputs [k, n]; coeffs: k + 1 floats in HOST memory
+// (avail_0 .. avail_{k-1}, 1 / c_missing), 1 <= k <= 32; out [n]
+int repro_parity_decode(const void* p, const void* o, const float* coeffs,
+                        void* out, int k, long long n, int dtype,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || k > kMaxDecodeK) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  DecodeCoeffs cf;
+  for (int i = 0; i <= k; ++i) cf.c[i] = coeffs[i];
+  if (dtype == 0) {
+    parity_decode_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const float*>(p), static_cast<const float*>(o),
+        static_cast<float*>(out), cf, k, n);
+  } else if (dtype == 1) {
+    parity_decode_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(p),
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<__nv_bfloat16*>(out), cf, k, n);
+  } else {
+    return bad_dtype();
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // parity_outs [G, n]; outputs [G, k, n]; cmat [G, k+1] fp32; out [G, n]
 int repro_multigroup_decode(const void* p, const void* o, const void* cmat,
                             void* out, int G, int k, long long n, int dtype,
@@ -400,7 +463,16 @@ int repro_learned_project(const void* h, const void* w, void* out, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A cudaError_t, or a negative code for a failed driver call: -1 when the
+// driver has no cuTensorMapEncodeTiled, -1000 - r when it returned CUresult r
 const char* repro_error_string(int code) {
+  static thread_local char buf[96];
+  if (code == -1) return "cuTensorMapEncodeTiled not found in the driver";
+  if (code <= -1000) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             -1000 - code);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -13,6 +13,7 @@ actually launched on a CUDA tensor.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,6 +37,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _SIGNATURES = {
     "repro_parity_encode": [_P, _P, _P, _I, _LL, _I, _P],
+    "repro_parity_decode": [_P, _P, _P, _P, _I, _LL, _I, _P],
     "repro_multigroup_decode": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
     "repro_fused_encode_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _P],
@@ -183,7 +185,20 @@ def require_aligned(name, *tensors):
 
 
 def stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of ``device``'s current stream, as an int.
+    PyTorch's private accessor (the one its own compiled kernels use):
+    ``torch.cuda.current_stream()`` builds a Stream object on every call,
+    several microseconds of each launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def device_guard(device):
+    """Make ``device`` the current device around a launch; a no-op context
+    when it already is (``torch.cuda.device`` costs microseconds even
+    then)."""
+    if device.index == torch._C._cuda_getDevice():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(rc, name):

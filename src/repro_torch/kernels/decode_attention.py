@@ -76,7 +76,7 @@ def decode_attention(q, k_cache, v_cache, pos):
     else:
         ptrs = None, None
     lib = _build.library()
-    with torch.cuda.device(q.device):
+    with _build.device_guard(q.device):
         rc = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             pos.data_ptr(), out.data_ptr(), *ptrs, B, S, H, KV, hd, n_split,

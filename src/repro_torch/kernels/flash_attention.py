@@ -5,11 +5,20 @@ an fp32 online softmax),
                    v[b, j, h // rep]
 
 Replaces ``repro/kernels/flash_attention.py:flash_attention`` (a Pallas TPU
-kernel) with ``csrc/attention_kernels.cu:flash_kernel``: one block per
-(b, h, 32-row query tile) sweeping the key tiles itself, so m / l / acc stay
-in registers instead of a sequential grid axis's scratch.  Like the TPU
-kernel it has no ``q_offset`` (query row i sits at position i) and no
-backward pass."""
+kernel).  Each block owns a (b, h, query tile) and sweeps the key tiles
+itself, so m / l / acc stay in registers instead of a sequential grid axis's
+scratch.  The route follows the dtype, and nothing falls back from one to
+the other:
+
+- bf16: ``csrc/attention_kernels.cu:flash_wgmma_kernel``, both products on
+  the tensor cores (``wgmma``) with K / V tiles copied by TMA into a
+  two-stage mbarrier ring; P is rounded to bf16 before P.V;
+- fp32: ``flash_kernel``, SIMT fp32, which holds the fp32 tolerance (2e-5)
+  that bf16 tensor-core inputs cannot.
+
+A failed build, tensor-map encode or launch raises.  Like the TPU kernel it
+has no ``q_offset`` (query row i sits at position i) and no backward pass.
+"""
 from __future__ import annotations
 
 import torch
@@ -17,6 +26,10 @@ import torch
 from repro_torch.kernels import _build
 
 launches = _build.LaunchCounter("flash_attention")
+# launches by route (the dtype picks it); they sum to ``launches``
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+route_launches = {name: _build.LaunchCounter(f"flash_attention.{name}")
+                  for name in ROUTES.values()}
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -45,11 +58,12 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     if out.numel() == 0:
         return out
     lib = _build.library()
-    with torch.cuda.device(q.device):
+    with _build.device_guard(q.device):
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, H, KV, hd, int(bool(causal)), int(window), hd ** -0.5, code,
             _build.stream(q.device))
     _build.check(rc, name)
     launches.add()
+    route_launches[ROUTES[q.dtype]].add()
     return out

@@ -39,7 +39,7 @@ def fused_encode_forward(queries, coeffs, weights):
         raise ValueError(f"fused_encode_forward: B={B} exceeds {_MAX_B}")
     out = torch.empty((r, B, V), dtype=queries.dtype, device=queries.device)
     lib = _build.library()
-    with torch.cuda.device(queries.device):
+    with _build.device_guard(queries.device):
         rc = lib.repro_fused_encode_forward(
             queries.data_ptr(), coeffs.data_ptr(), weights.data_ptr(),
             out.data_ptr(), k, r, B, F, V, cx, cw,

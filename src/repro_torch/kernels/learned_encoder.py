@@ -38,7 +38,7 @@ def launch(h, w, name):
                          f"H*min(r, {_ROWS}) <= {_MAX_SMEM_FLOATS}")
     out = torch.empty((r, B, F), dtype=h.dtype, device=h.device)
     lib = _build.library()
-    with torch.cuda.device(h.device):
+    with _build.device_guard(h.device):
         rc = lib.repro_learned_project(
             h.data_ptr(), w.data_ptr(), out.data_ptr(), H, r, B * F, code,
             _build.stream(h.device))

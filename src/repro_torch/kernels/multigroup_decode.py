@@ -45,7 +45,7 @@ def multigroup_decode(parity_outs, outputs, cmat):
     G, k, B, V = outputs.shape
     out = torch.empty_like(parity_outs)
     lib = _build.library()
-    with torch.cuda.device(parity_outs.device):
+    with _build.device_guard(parity_outs.device):
         rc = lib.repro_multigroup_decode(
             parity_outs.data_ptr(), outputs.data_ptr(), cmat.data_ptr(),
             out.data_ptr(), G, k, B * V, code,

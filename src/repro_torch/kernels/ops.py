@@ -58,17 +58,24 @@ def parity_encode_op(queries, coeffs):
 
 
 def parity_decode_op(parity_out, outputs, missing_idx, coeffs=None):
-    """parity_out [B, V]; outputs [k, B, V]; missing_idx python int."""
-    k = outputs.shape[0]
-    dev = outputs.device
-    c = torch.ones((k,), dtype=torch.float32, device=dev) if coeffs is None \
-        else _f32(coeffs, dev)
-    avail = c * (torch.arange(k, device=dev) != missing_idx)
-    inv_c = 1.0 / c[missing_idx]
+    """parity_out [B, V]; outputs [k, B, V]; missing_idx python int;
+    coeffs [k] host values (None, numpy, a list or a CPU tensor; None is
+    the sum code).  The k + 1 decode coefficients are computed here on the
+    host with the reference's formula (avail_i = c_i [i != j],
+    inv_c = 1 / c_j), so the card sees one launch; a CUDA ``coeffs`` raises
+    ``TypeError``."""
+    j = int(missing_idx)
+    if coeffs is None:
+        avail, inv_c = np.ones(outputs.shape[0], np.float32), np.float32(1.0)
+    else:
+        avail = _decode.host_floats(coeffs, "parity_decode_op").copy()
+        inv_c = np.float32(1.0) / avail[j]
+    avail[j] *= 0                  # c_j [j != j], its sign kept as c_j * 0
     if _on_card(outputs):
         return _decode.parity_decode(parity_out.contiguous(),
                                      outputs.contiguous(), avail, inv_c)
-    return ref.parity_decode_ref(parity_out, outputs, avail, inv_c)
+    return ref.parity_decode_ref(parity_out, outputs, torch.from_numpy(avail),
+                                 inv_c)
 
 
 def fused_encode_forward_op(queries, coeffs, weights):

@@ -26,7 +26,7 @@ def parity_encode(queries, coeffs):
     k, B, F = queries.shape
     out = torch.empty((B, F), dtype=queries.dtype, device=queries.device)
     lib = _build.library()
-    with torch.cuda.device(queries.device):
+    with _build.device_guard(queries.device):
         rc = lib.repro_parity_encode(
             queries.data_ptr(), coeffs.data_ptr(), out.data_ptr(), k, B * F,
             code, _build.stream(queries.device))

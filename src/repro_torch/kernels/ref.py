@@ -76,6 +76,32 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def flash_attention_bf16p_ref(q, k, v, *, causal=True, window=0):
+    """``flash_attention_ref`` with the one rounding that B7's tensor-core
+    route adds: the unnormalised probabilities exp(s - rowmax) are rounded
+    to bf16 before P.V (the A operand of ``wgmma``), while the row sum stays
+    fp32.  A model of that route's numerics for the tests, not a second
+    plain version: the kernel rounds each key tile's p against the running
+    max of its online softmax, this against the row's final max."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    qg = q.float().reshape(B, Sq, KV, rep, hd) * hd ** -0.5
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float())
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kpos <= qpos
+    if window:
+        valid &= kpos > qpos - window
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(),
+                     v.float()) / p.sum(dim=-1, keepdim=True)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
 def decode_attention_ref(q, k_cache, v_cache, pos):
     """q [B,H,hd]; caches [B,S,KV,hd]; pos a scalar or [B] per-row positions
     (valid slots: kpos <= pos[b]) -> [B,H,hd] in q's dtype, all in fp32.

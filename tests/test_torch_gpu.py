@@ -11,6 +11,7 @@ decodes by k, the projection kernel (B5, B6) by 4, the attention kernels
 (B7, B8) bf16 3e-2, as in the reference's ``tests/test_kernels.py``."""
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,12 +57,43 @@ def test_parity_encode_kernel(cuda, k, B, F, dt):
 def test_parity_decode_kernel(cuda, k, B, V, dt):
     outs = torch.randn((k, B, V), generator=cuda, device="cuda").to(dt)
     par = torch.randn((B, V), generator=cuda, device="cuda").to(dt)
-    c = torch.arange(1.0, k + 1.0, device="cuda")
+    c = np.arange(1.0, k + 1.0, dtype=np.float32)       # host coefficients
     for j in range(k):
-        avail = c * (torch.arange(k, device="cuda") != j)
+        avail = torch.tensor(c * (np.arange(k) != j), device="cuda")
         _close(ops.parity_decode_op(par, outs, j, coeffs=c),
-               ref.parity_decode_ref(par, outs, avail, 1.0 / c[j]),
+               ref.parity_decode_ref(par, outs, avail, 1.0 / float(c[j])),
                _tol(dt) * k, 2e-2)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_parity_decode_kernel_host_coeffs(cuda, k, dt):
+    """B3 with non-unit numpy coefficients, every missing index: one
+    launch per call, held against the plain version."""
+    rng = np.random.default_rng(k)
+    c = rng.uniform(0.5, 2.0, k).astype(np.float32) * \
+        rng.choice([-1.0, 1.0], k).astype(np.float32)
+    outs = torch.randn((k, 4, 10), generator=cuda, device="cuda").to(dt)
+    par = torch.randn((4, 10), generator=cuda, device="cuda").to(dt)
+    cnt = ops.counters()["parity_decode"]
+    for j in range(k):
+        before = cnt.value
+        got = ops.parity_decode_op(par, outs, j, coeffs=c)
+        torch.cuda.synchronize()
+        assert cnt.value == before + 1
+        avail = torch.tensor(c * (np.arange(k) != j), device="cuda")
+        _close(got, ref.parity_decode_ref(par, outs, avail,
+                                          1.0 / float(c[j])),
+               _tol(dt) * k, 2e-2)
+
+
+def test_parity_decode_rejects_cuda_coeffs(cuda):
+    """Coefficients on the card would cost a sync per decode: a CUDA
+    coefficient tensor raises instead of being read back."""
+    outs = torch.ones((2, 1, 10), device="cuda")
+    with pytest.raises(TypeError, match="host"):
+        ops.parity_decode_op(outs[0], outs, 0,
+                             coeffs=torch.ones(2, device="cuda"))
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -151,6 +183,42 @@ def test_flash_attention_kernel(cuda, B, Sq, Sk, H, KV, hd, causal, window,
     assert ops.counters()["flash_attention"].value == before + 1
     _close(got, ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window), _attn_tol(dt), 0.0)
+
+
+# the tensor-core route (bf16): prompt lengths around the 64-row query and
+# key tiles and the longest LM prompt, at hd 32 / 64 / 128 (rep 7)
+_WGMMA_CASES = [(1, S, S, 14, 2, hd, True, 0)
+                for hd in (32, 64, 128)
+                for S in (1, 63, 64, 65, 127, 129, 910)] + [
+    (1, 100, 300, 4, 2, 64, False, 0),     # non-causal, Sk > Sq
+    (2, 200, 77, 8, 2, 128, False, 0),     # non-causal, Sk < Sq
+    (1, 300, 300, 4, 1, 32, True, 5),      # windows
+    (1, 300, 300, 4, 2, 64, True, 64),
+    (2, 150, 150, 6, 3, 128, True, 64),
+    (3, 130, 130, 3, 3, 64, True, 0),      # B = 3, rep 1, 3 and 7
+    (3, 130, 130, 9, 3, 32, True, 0),
+    (3, 130, 130, 14, 2, 128, True, 0),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", _WGMMA_CASES)
+def test_flash_attention_wgmma_route(cuda, B, Sq, Sk, H, KV, hd, causal,
+                                     window):
+    """B7's bf16 route (flash_wgmma_kernel): held to 3e-2 against the plain
+    version, and counted on the tensor-core route."""
+    from repro_torch.kernels import flash_attention as kf
+    bf = torch.bfloat16
+    q = torch.randn((B, Sq, H, hd), generator=cuda, device="cuda").to(bf)
+    k = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(bf)
+    v = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(bf)
+    before = (kf.route_launches["wgmma"].value,
+              kf.route_launches["simt"].value)
+    got = ops.flash_attention_op(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (kf.route_launches["wgmma"].value,
+            kf.route_launches["simt"].value) == (before[0] + 1, before[1])
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window), 3e-2, 0.0)
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd,pos,dt", [

@@ -95,6 +95,37 @@ def test_parity_decode(k, B, V, dt):
            jops.parity_decode_op(jp, jo, 0), _tol(dt) * k, 2e-2)
 
 
+@pytest.mark.parametrize("kind", ["numpy", "list", "tensor"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_parity_decode_host_coeffs(k, kind):
+    """B3's coefficients are computed on the host: for numpy, list and CPU
+    tensor coefficients (non-unit, mixed sign) and every missing index the
+    op equals the JAX package's op, and is bit-identical to the plain
+    version fed today's device-computed coefficients."""
+    rng = np.random.default_rng(100 + k)
+    c = (rng.uniform(0.5, 2.0, k) * rng.choice([-1.0, 1.0], k)).astype(
+        np.float32)
+    jo, to = _both(rng.normal(size=(k, 3, 10)).astype(np.float32))
+    jp, tp = _both(rng.normal(size=(3, 10)).astype(np.float32))
+    coeffs = {"numpy": c, "list": c.tolist(), "tensor": torch.tensor(c)}[kind]
+    for j in range(k):
+        got = ops.parity_decode_op(tp, to, j, coeffs=coeffs)
+        _close(got, jops.parity_decode_op(jp, jo, j, coeffs=jnp.asarray(c)),
+               _tol("f32") * k, 2e-2)
+        tc = torch.tensor(c)
+        today = ref.parity_decode_ref(tp, to, tc * (torch.arange(k) != j),
+                                      1.0 / tc[j])
+        assert torch.equal(got, today)
+
+
+def test_parity_decode_rejects_device_coeffs():
+    """Coefficients off the host raise TypeError (reading them back would
+    add a device sync to every decode)."""
+    with pytest.raises(TypeError, match="host"):
+        ops.parity_decode_op(torch.ones(3, 5), torch.ones(2, 3, 5), 0,
+                             coeffs=torch.ones(2, device="meta"))
+
+
 @pytest.mark.parametrize("k,r,B,F,V,dt", [
     (2, 1, 4, 512, 128, "f32"),
     (3, 1, 5, 300, 130, "f32"),      # nothing 128-aligned

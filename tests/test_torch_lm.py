@@ -150,6 +150,30 @@ def test_flash_attention_plain_vs_pallas(B, Sq, H, KV, hd, causal, window,
     _close(got, want, 3e-2 if dt == "bfloat16" else F32)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
+    (2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 4, 4, 64, True, 64),
+    (2, 100, 100, 2, 1, 32, False, 0), (1, 128, 128, 8, 2, 128, True, 0),
+    (3, 33, 47, 6, 3, 128, False, 16), (2, 70, 70, 4, 2, 32, True, 5),
+    (1, 1, 1, 14, 2, 64, True, 0),
+])
+def test_flash_attention_bf16p_vs_pallas(B, Sq, Sk, H, KV, hd, causal,
+                                         window):
+    """The tensor-core route rounds P to bf16 before P.V: a plain copy with
+    that rounding meets the bf16 tolerance (3e-2) against the Pallas kernel
+    on the sweep shapes, so the tolerance is known to hold before the
+    card."""
+    rng = np.random.default_rng(B * 7 + Sq + Sk)
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, "bfloat16") for x in (q, k, v))
+    want = jops.flash_attention_op(jq, jk, jv, causal=causal, window=window)
+    got = ref.flash_attention_bf16p_ref(tq, tk, tv, causal=causal,
+                                        window=window)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, 3e-2)
+
+
 @pytest.mark.parametrize("B,S,H,KV,hd,pos,dt", [
     (2, 512, 4, 2, 64, 100, "float32"),
     (1, 1024, 8, 1, 32, 1023, "float32"),
