@@ -34,8 +34,8 @@ Phases, in order; any failure exits non-zero:
                tokens, 16 new tokens each), once without and once with a
                straggling member; tokens held against an uncoded greedy loop,
                the kernel path's logits against the "torch" backend's, every
-               B7 launch held to its tensor-core route, and the measured
-               prefill and decode step beside the H100 roofline.
+               B7 and B8 launch held to its tensor-core route, and the
+               measured prefill and decode step beside the H100 roofline.
 
 The launch counters are zeroed before each of the three paths (phases 3-4, the
 coded MLP serving path; phases 5-7, the scheme registry's path; phase 8, coded
@@ -173,6 +173,12 @@ def device_ops(fn, iters=20):
         torch.cuda.synchronize()
     return {ev.key: ev.count for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA}
+
+
+def fmt_ms(ms):
+    """A measured device time, or "not measured" where the trace held
+    none."""
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def bound(nbytes, flops, dtype):
@@ -377,15 +383,21 @@ def sweep_kernels():
             (3, 256, 2, 2, 64, 0), (2, 384, 4, 4, 128, 200),
             (1, 1024, 8, 1, 32, 0), (3, 256, 2, 2, 64, 255),
             (3, 16, 4, 2, 64, [2, 9, 5]), (2, 100, 32, 2, 128, [99, 5000]),
-            (4, 1280, 14, 2, 64, [300, 1279, 5, 700])]:
+            (4, 1280, 14, 2, 64, [300, 1279, 5, 700]),
+            (1, 8192, 16, 1, 128, 8191), (1, 8, 4, 2, 32, 0)]:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(gen, (B, H, hd), dt)
             kc = randn(gen, (B, S, KV, hd), dt)
             vc = randn(gen, (B, S, KV, hd), dt)
+            route = k_dattn.route_launches[k_dattn.ROUTES[dt]]
+            before = route.value
             check_close(f"decode_attention {B,S,H,KV,hd,pos,dt}",
                         ops.decode_attention_op(q, kc, vc, pos),
                         ref.decode_attention_ref(q, kc, vc, pos),
                         attn_tol(dt), 0.0)
+            if route.value != before + 1:
+                raise AssertionError(f"decode_attention {dt}: not on the "
+                                     f"{k_dattn.ROUTES[dt]} route")
             n += 1
     torch.cuda.synchronize()
     return n
@@ -446,8 +458,24 @@ def attention_rows(gen):
     mask = (torch.arange(S, device=DEV)[None, :] <= pos[:, None])[
         :, None, None, :]
     q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    got = k_dattn.decode_attention(q, kc, vc, pos)
+
+    def b8():
+        return k_dattn.decode_attention(q, kc, vc, pos)
+
+    got = b8()
     want = ref.decode_attention_ref(q, kc, vc, pos)
+    seen = device_ops(b8)
+    if len(seen) != 1 or sum(seen.values()) != 20 or \
+            "decode_cluster_kernel" not in next(iter(seen)):
+        raise AssertionError(f"B8: 20 calls issued {seen} on the device, "
+                             f"not 20 launches of decode_cluster_kernel")
+    log("[kernels] decode_attention: 20 calls of the wrapper issue 20 "
+        "launches of decode_cluster_kernel and no other device operation")
+    for (dt, hd_), (size, capacity) in sorted(
+            k_dattn.cluster_decisions().items(), key=str):
+        log(f"[kernels] decode_attention cluster decision ({dt}, hd {hd_}): "
+            f"{size} CTAs per (b, kv-head); clusters the card holds at once "
+            f"by size: {capacity}")
     lib_err = check_close("B8 library", sdpa(q4, kt, vt, attn_mask=mask)[:, :,
                                                                         0],
                           want, attn_tol(bf), 0.0)
@@ -456,9 +484,8 @@ def attention_rows(gen):
         shape=[B, S, H, KV, hd], pos=pos.tolist(),
         replaces="src/repro/kernels/decode_attention.py:63",
         max_abs_err=check_close("B8", got, want, attn_tol(bf), 0.0),
-        ms=time_ms(lambda: k_dattn.decode_attention(q, kc, vc, pos)),
-        device_ms=device_ms(lambda: k_dattn.decode_attention(q, kc, vc, pos),
-                            ("decode_kernel", "decode_combine_kernel")),
+        ms=time_ms(b8),
+        device_ms=device_ms(b8, "decode_cluster_kernel"),
         plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, pos)),
         library_ms=time_ms(lambda: sdpa(q4, kt, vt, attn_mask=mask)),
         library_device_ms=library_device_ms(
@@ -467,7 +494,34 @@ def attention_rows(gen):
         # q and out once, each valid cache row of k and v once, pos
         bound=bound(2 * B * H * hd * 2 + 2 * valid * KV * hd * 2 + B * 4,
                     4 * hd * H * valid, bf))
+    # the device time at each cluster size (the card's pick is above), and
+    # with one valid slot per row: what a launch costs whatever pos is
+    by_cluster = {}
+    for size in k_dattn.CLUSTER_SIZES:
+        with forced_cluster(size):
+            by_cluster[size] = device_ms(b8, "decode_cluster_kernel")
+    pos0 = torch.zeros_like(pos)
+    rows["decode_attention"].update(
+        device_ms_by_cluster=by_cluster,
+        one_slot_device_ms=device_ms(
+            lambda: k_dattn.decode_attention(q, kc, vc, pos0),
+            "decode_cluster_kernel"))
+    log(f"[kernels] decode_attention device ms by cluster size {by_cluster}; "
+        f"with pos 0 in every row (one slot) "
+        f"{fmt_ms(rows['decode_attention']['one_slot_device_ms'])}")
     return rows
+
+
+@contextlib.contextmanager
+def forced_cluster(size):
+    """B8 launched with clusters of ``size`` CTAs whatever the card's pick
+    (timing only)."""
+    chosen = k_dattn.cluster_size
+    k_dattn.cluster_size = lambda *_: size
+    try:
+        yield
+    finally:
+        k_dattn.cluster_size = chosen
 
 
 def measure_kernels():
@@ -590,7 +644,11 @@ def measure_kernels():
                     2 * r * k * B * F + 2 * r * B * F * V, f32))
 
     # B5 and B6 at the four shapes phases 5-6 give them (A_d over 200
-    # groups of two 32x32x3 images); the first of each is the JSON row
+    # groups of two 32x32x3 images); the first of each is the JSON row.
+    # Back-to-back calls find inputs below 50 MB in L2; cold_device_ms
+    # writes 64 MB between calls, so the kernel reads device memory
+    flush = torch.empty(64 * 2 ** 20 // 4, device=DEV)
+
     def project_row(label, shape, counter):
         H, B, F, r = shape                  # H is k for the berrut encode
         h = randn(gen, (H, B, F), f32)
@@ -610,6 +668,10 @@ def measure_kernels():
             device_ms=device_ms(call, "project_kernel"),
             plain_ms=time_ms(lambda: ref.learned_project_ref(h, w)),
             library_ms=time_ms(lambda: torch.einsum("hr,hbf->rbf", w, h)),
+            library_device_ms=library_device_ms(
+                lambda: torch.einsum("hr,hbf->rbf", w, h)),
+            cold_device_ms=device_ms(lambda: (flush.fill_(0.0), call()),
+                                     "project_kernel"),
             bound=bound((H + r) * B * F * es + H * r * 4, 2 * H * r * B * F,
                         f32))
         rows.setdefault(counter, dict(
@@ -626,19 +688,22 @@ def measure_kernels():
     for name in ("learned_project", "berrut_encode"):
         first = rows[name]["shapes"][0]
         rows[name].update({key: first[key] for key in (
-            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
-            "library_ms", "bound")})
+            "shape", "max_abs_err", "ms", "device_ms", "cold_device_ms",
+            "plain_ms", "library_ms", "library_device_ms", "bound")})
     rows.update(attention_rows(gen))
     for name, row in rows.items():
         for one in row.get("shapes", [dict(row, label="")]):
-            dev = "not measured" if one["device_ms"] is None else \
-                f"{one['device_ms']:.5f}"
+            dev = fmt_ms(one["device_ms"])
             log(f"[kernels] {name:21s} {one['label']} shape={one['shape']} "
                 f"max_abs_err={one['max_abs_err']:.3e} ms={one['ms']:.5f} "
                 f"device_ms={dev} "
-                f"plain_ms={one['plain_ms']:.5f} "
+                + (f"cold_device_ms={fmt_ms(one['cold_device_ms'])} "
+                   if "cold_device_ms" in one else "")
+                + f"plain_ms={one['plain_ms']:.5f} "
                 f"library_ms={one['library_ms']:.5f} "
-                f"bound_ms={one['bound'][0]:.6f} ({one['bound'][1]})")
+                + (f"library_device_ms={one['library_device_ms']:.5f} "
+                   if "library_device_ms" in one else "")
+                + f"bound_ms={one['bound'][0]:.6f} ({one['bound'][1]})")
     b3 = rows["parity_decode"]
     log(f"[kernels] parity_decode with host coefficients: wrapper "
         f"ms={b3['ms']:.5f}, parity_decode_op ms={b3['op_ms']:.5f}, "
@@ -993,9 +1058,10 @@ LM_SLOTS, LM_SEQ, LM_NEW, LM_REQUESTS = 4, 1280, 16, 8
 # where the loop decodes one, so the sums round differently in bf16.
 LM_GAP_TOL = 0.1
 # max |logit| difference between the kernel path and the "torch" backend on
-# one teacher-forced sequence: B8 keeps P in fp32 where the torch twin casts
-# it to bf16 before P.V (B7, like the twin, rounds it to bf16, but against
-# other running maxima), and the difference passes through 24 bf16 layers
+# one teacher-forced sequence: B7 and B8, like the torch twin, round P to
+# bf16 before P.V, but against other running maxima (per key tile, per
+# 16-slot chunk of each CTA), and the difference passes through 24 bf16
+# layers
 LM_LOGIT_TOL = 0.1
 
 
@@ -1170,7 +1236,8 @@ def phase_lm():
         raise AssertionError(f"lm: kernel logits {err} from the torch "
                              f"backend's")
 
-    for c in [*ops.counters().values(), *k_flash.route_launches.values()]:
+    for c in [*ops.counters().values(), *k_flash.route_launches.values(),
+              *k_dattn.route_launches.values()]:
         c.reset()
     uncounted = Uncounted()
     futs, clean, setup_s, serve_s = lm_serve(cfg, params, prompts, 10_000.0)
@@ -1249,6 +1316,14 @@ def phase_lm():
     log(f"[lm] B7 on the LM path: {path3['flash_attention']} launches, every "
         f"launch of phase 8 on the tensor-core route (comparison runs "
         f"included: {routes})")
+    droutes = {name: c.value for name, c in k_dattn.route_launches.items()}
+    if droutes != {"mma": counts()["decode_attention"], "simt": 0}:
+        raise AssertionError(f"lm: B8 launches by route {droutes}, of "
+                             f"{counts()['decode_attention']} in phase 8: "
+                             f"not all on the tensor-core route")
+    log(f"[lm] B8 on the LM path: {path3['decode_attention']} launches, every "
+        f"launch of phase 8 on the tensor-core route (mma.sync; comparison "
+        f"runs included: {droutes})")
 
     kv_len = int(np.mean(pos)) + 1
     roof_ms = 1e3 * decode_token_cost(cfg, batch=LM_SLOTS, kv_len=kv_len)
@@ -1273,6 +1348,7 @@ def phase_lm():
         logit_err=err, decode_step_ms=step_ms, roofline_ms=roof_ms,
         prefill_ms=pre_ms, prefill_tokens=len(longest),
         flash_routes={"wgmma": path3["flash_attention"], "simt": 0},
+        decode_routes={"mma": path3["decode_attention"], "simt": 0},
         decode_step_device_ms=step_busy / 3 * 1e3,
         decode_step_device_ops=step_ops / 3,
         serve_device_busy_share=serve_busy / serve_wall)
@@ -1287,8 +1363,10 @@ def kernel_entry(name, row, launches, by_path):
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"], "shape": row["shape"],
             "launches_by_path": by_path,
-            **{key: row[key] for key in ("op_ms", "decode_one_ms",
-                                         "library_device_ms") if key in row}}
+            **{key: row[key] for key in (
+                "op_ms", "decode_one_ms", "library_device_ms",
+                "cold_device_ms", "device_ms_by_cluster",
+                "one_slot_device_ms") if key in row}}
 
 
 PATH1 = ("parity_encode", "fused_encode_forward", "parity_decode",

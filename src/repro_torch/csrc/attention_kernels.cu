@@ -13,13 +13,18 @@
 //   flash_wgmma_kernel    replace repro/kernels/flash_attention.py:
 //   flash_kernel          flash_attention (B7, prefill attention): bf16 on
 //                         the tensor cores (wgmma fed by TMA), fp32 in SIMT
-//   decode_kernel         replaces repro/kernels/decode_attention.py:
-//   decode_combine_kernel decode_attention (B8, one-token attention over a
-//                         KV cache), the second pass of a split sweep
+//   decode_cluster_kernel replaces repro/kernels/decode_attention.py:
+//                         decode_attention (B8, one-token attention over a
+//                         KV cache): one launch, the split sweep combined
+//                         inside a thread-block cluster
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -38,7 +43,6 @@ constexpr float kNegInf = -1e30f;   // the reference's mask value
 // multiplied by `scale` (1 for keys and values: exact) into shared memory.
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
 
 template <typename T>
 __device__ __forceinline__ void widen(const uint4& raw, float scale,
@@ -49,17 +53,6 @@ __device__ __forceinline__ void widen<float>(const uint4& raw, float scale,
   *reinterpret_cast<float4*>(dst) =
       make_float4(__uint_as_float(raw.x) * scale, __uint_as_float(raw.y) * scale,
                   __uint_as_float(raw.z) * scale, __uint_as_float(raw.w) * scale);
-}
-template <>
-__device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& raw,
-                                                     float scale, float* dst) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] =
-      make_float4(a.x * scale, a.y * scale, b.x * scale, b.y * scale);
-  reinterpret_cast<float4*>(dst)[1] =
-      make_float4(c.x * scale, c.y * scale, d.x * scale, d.y * scale);
 }
 
 // Copy rows [0, n_store) (n_store <= ROWS) of two [rows, HD] tiles (row r
@@ -713,195 +706,588 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 
 // ---------------------------------------------------------------- decode ---
 // out[b, h] = softmax_j(scale * q[b, h] . kc[b, j, g]) vc[b, j, g] over the
-// cached slots j <= pos[b] (j < min(pos[b] + 1, S)), g = h / rep.
-// q [B, H, hd], caches [B, S, KV, hd], pos [B] int32.
+// cached slots j <= pos[b] (j < n_valid = min(pos[b] + 1, S)), g = h / rep.
+// q [B, H, hd], caches [B, S, KV, hd], pos [B] int32.  Replaces
+// repro/kernels/decode_attention.py:decode_attention (B8).
 //
-// Bound on the H100: bytes.  One decode step reads each valid cache row
-// once (2 x n_valid x KV x hd elements per batch row) and does ~4 operations
-// per element read for each of the rep query heads that share it, far below
-// the ~295 operations per byte where the card turns compute-bound.
-// Design: the rep query heads of one KV head ride together in one block
-// (scores [rep, tile] from one shared-memory copy of the key tile), so the
-// cache is read once, not rep times.  At the serving shapes (B <= 4, KV = 2)
-// one block per (b, kv-head) would fill 8 of 132 SMs, so the S sweep is
-// split (flash-decoding): grid (n_split, KV, B), each block sweeps one
-// chunk of slots in 64-slot tiles, keeping m / l in shared memory and its
-// share of the [rep, hd] accumulator in registers; blocks whose chunk lies
-// beyond pos[b] load nothing.  With one split the block writes the output;
-// with more it writes fp32 partials (m, l, acc) and decode_combine_kernel
-// rescales and sums them.  Slots beyond pos[b] are never read, and pos is
-// read on the device, so a step costs no host round trip.
-constexpr int kDecThreads = 128;
-constexpr int kDecTile = 64;
-constexpr int kMaxRep = 16;
+// Bound on the H100: bytes.  A call reads each valid cache row of K and V
+// once (2 x n_valid x KV x hd elements per batch row) and does 4 operations
+// per (query head, slot) pair and hd, ~rep operations per byte read, far
+// below the ~295 where the card turns compute-bound.  At the LM path's
+// shape ([4, 1280, 14, 64] bf16, pos [300, 1279, 517, 1031]) that is 1.6 MB,
+// 0.48 us at 3.35 TB/s: a single launch (~1.35 us on this card) is above it.
+// Design: one launch, no scratch in device memory, no second kernel.
+// - Grid (cluster, KV, B): the CTAs of one (b, kv-head) form a thread-block
+//   cluster of 8 or 16 along x (decode_attention.py picks the size once per
+//   instance from cudaOccupancyMaxActiveClusters).  Each CTA takes an equal
+//   share of the n_valid slots, a multiple of 16 (cta_range below; the
+//   Python plan computes the same ranges), so the work follows pos[b] on
+//   the device and a short row leaves whole CTAs idle instead of splitting
+//   evenly over S.
+// - Loads: the CTA's share is cut into 16-slot chunks, chunk c going to
+//   warp c % 4.  Each warp copies its own chunks' K and V rows with 16-byte
+//   cp.async into its own ring (up to 4 chunks; ~72 KB for the CTA), every
+//   stage at entry, so the sweep needs no block barrier, only __syncwarp.
+//   A row past n_valid is never read (the copy of the last chunk's tail
+//   zero-fills instead).  The rows stay in the cache's dtype in shared
+//   memory, padded by 16 bytes so the ldmatrix / float4 reads of 8 rows hit
+//   distinct banks.  cp.async and not
+//   TMA: a TMA box has a fixed row count, so the last box of a CTA would
+//   read rows past pos[b], and its tensor maps would be encoded on the
+//   host on every call.
+// - Arithmetic: each warp keeps its own online softmax (m, l, O) over its
+//   chunks for the rep <= 16 query heads of the KV head.  bf16: S = Q K^T and O += P V on the tensor cores with
+//   mma.sync m16n8k16 (the rep heads are the 16 rows, zero-padded; wgmma's
+//   64 rows cannot be filled by a decode), K and V fragments by ldmatrix
+//   (V transposed), Q's fragments held in registers (loaded before pos is
+//   read, so the two loads overlap), S's even and odd k-steps in separate
+//   accumulators (half the chain of dependent mma.sync), P taken from the
+//   S accumulator's registers as the A fragment and rounded to bf16 (B7's
+//   one rounding).  fp32: the same structure in SIMT fp32, which holds the
+//   2e-5 tolerance.  Scores carry scale * log2(e), so the softmax runs on
+//   exp2.
+// - Combine: the four warps' (m, l, O) merge in shared memory into the
+//   CTA's, and each CTA stores its values straight into the shared memory
+//   of the CTA that owns them (distributed shared memory, O as float4s;
+//   each CTA owns an equal share of the rep x hd outputs, every CTA gets m
+//   and l of every row).  One cluster barrier later each CTA rescales what it received
+//   and writes its outputs in q's dtype, reading only its own shared
+//   memory, so no second barrier holds a CTA until its peers are done.  A
+//   barrier phase that every CTA arrives at on entry and waits on before
+//   its first remote store makes sure no peer is written before it runs.
+constexpr int kDecThreads = 128;                  // four warps
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecChunk = 16;                     // slots per warp step
+constexpr int kMaxRep = 16;                       // rows of m16n8k16
+constexpr int kMaxCluster = 16;
+constexpr int kDecRingBytes = 73728;              // ring budget per CTA
+
+template <typename T, int HD> struct DecLayout {
+  static constexpr int RS = HD * static_cast<int>(sizeof(T)) + 16;  // row
+  static constexpr int STAGE = 2 * kDecChunk * RS;   // one chunk: K, V
+  // stages of each warp's own ring
+  static constexpr int NST = kDecRingBytes / (kDecWarps * STAGE) < 1 ? 1
+                             : kDecRingBytes / (kDecWarps * STAGE) > 4 ? 4
+                             : kDecRingBytes / (kDecWarps * STAGE);
+  static constexpr int RING = kDecWarps * NST * STAGE;
+  // per-warp partials (O [16][HD], m [16], l [16]), aliasing the ring
+  static constexpr int PART = kDecWarps * kMaxRep * (HD + 2) * 4;
+  static constexpr int WORK = RING > PART ? RING : PART;
+  // the fp32 route's pre-scaled Q [16][HD]
+  static constexpr int QS = std::is_same<T, float>::value ? kMaxRep * HD * 4
+                                                          : 0;
+  // what the cluster's CTAs send this one: their O for the outputs it owns
+  // ([cs][4 per4], per4 = ceil(rep HD / 4 / cs) column quads), and m and l
+  // of every row ([cs][16] each)
+  static constexpr int RECV =
+      (kMaxRep * HD + 4 * kMaxCluster + 2 * kMaxCluster * kMaxRep) * 4;
+  static constexpr int SMEM = WORK + QS + RECV;
+};
+
+// Split arrive / wait on the cluster barrier (all threads of every CTA)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {   // release
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {     // acquire
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Slots [begin, end) of CTA `rank` of a cluster of `cs`: ceil(n_valid / cs)
+// rounded up to a multiple of kDecChunk each (decode_attention.py:cta_slots
+// is the same arithmetic)
+__device__ __forceinline__ void cta_range(int n_valid, int cs, int rank,
+                                          int* begin, int* end) {
+  const int per = (n_valid + cs - 1) / cs;
+  const int share = (per + kDecChunk - 1) / kDecChunk * kDecChunk;
+  *begin = min(rank * share, n_valid);
+  *end = min(*begin + share, n_valid);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// One warp copies slots [s0, s0 + kDecChunk) ∩ [s0, end) of K and V (head
+// g, batch row b) into a stage of its ring: K rows at stage + i * RS, V
+// rows after them.  Rows from `end` on are zero-filled without a read (a
+// masked P.V term is then 0 * 0, never 0 * garbage).
+template <typename T, int HD>
+__device__ __forceinline__ void load_chunk(uint8_t* stage,
+                                           const T* __restrict__ kb,
+                                           const T* __restrict__ vb,
+                                           int64_t row, int s0, int end) {
+  using L = DecLayout<T, HD>;
+  constexpr int CPR = HD * static_cast<int>(sizeof(T)) / 16;   // 16 B / row
+  const int n = min(kDecChunk, end - s0);
+#pragma unroll
+  for (int c = threadIdx.x & 31; c < kDecChunk * CPR; c += 32) {
+    const int r = c / CPR, x = c % CPR;
+    const bool valid = r < n;
+    const int64_t off = valid ? (s0 + r) * row + x * (16 / sizeof(T)) : 0;
+    cp_async16(stage + r * L::RS + x * 16, kb + off, valid);
+    cp_async16(stage + (kDecChunk + r) * L::RS + x * 16, vb + off, valid);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// D[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's online softmax over its chunks, for the bf16 route: rows g and
+// g + 8 of the 16 (query heads), m and l of each (l summed over this
+// thread's columns only; the quad's sum is taken once, at the end), and
+// the O accumulator fragment (columns 8 j + 2 t and + 1 of rows g, g + 8).
+template <int HD>
+struct MmaState {
+  uint32_t qa[HD / 16][4];   // Q's A fragments, one per 16-column k-step
+  float o[HD / 8][4];
+  float m[2], l[2];
+};
 
 template <int HD>
-constexpr int decode_smem_floats(int rep) {
-  return rep * (HD + 4) + kDecTile * (HD + 4) + kDecTile * HD +
-         rep * (kDecTile + 1) + 3 * rep;
+__device__ __forceinline__ void mma_init(MmaState<HD>& st,
+                                         const __nv_bfloat16* __restrict__ qg,
+                                         int rep) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + 8 * (e & 1), col = 16 * kk + 2 * t + 8 * (e >> 1);
+      st.qa[kk][e] = row < rep ? *reinterpret_cast<const uint32_t*>(
+                                     qg + row * HD + col)
+                               : 0u;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.o[j][e] = 0.f;
+  st.m[0] = st.m[1] = kNegInf;
+  st.l[0] = st.l[1] = 0.f;
+}
+
+// One 16-slot chunk (slots s0 .. s0 + 15, those >= end masked) whose K rows
+// sit at ks and V rows at vs, row stride RS bytes
+template <int HD, int RS>
+__device__ __forceinline__ void mma_chunk(MmaState<HD>& st,
+                                          const uint8_t* ks,
+                                          const uint8_t* vs, int s0, int end,
+                                          float scale_log2) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;   // ldmatrix: matrix, its row
+  // even and odd k-steps accumulate apart, halving the chain of dependent
+  // mma.sync, and are summed after
+  float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float s2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    // matrices (slots 0-7, cols lo), (0-7, hi), (8-15, lo), (8-15, hi)
+    uint32_t kf[4];
+    ldmatrix_x4(kf, ks + (mr + 8 * (mi >> 1)) * RS +
+                        (16 * kk + 8 * (mi & 1)) * 2);
+    float (&acc)[2][4] = kk & 1 ? s2 : s;
+    mma_bf16(acc[0], st.qa[kk], kf[0], kf[1]);
+    mma_bf16(acc[1], st.qa[kk], kf[2], kf[3]);
+  }
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] += s2[nb][e];
+  const bool edge = s0 + kDecChunk > end;
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[nb][e] * scale_log2;
+      if (edge && s0 + 8 * nb + 2 * t + (e & 1) >= end) x = kNegInf;
+      s[nb][e] = x;
+    }
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mt = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                     fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(st.m[r], mt);
+    corr[r] = exp2f(st.m[r] - m_new);
+    float lt = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float x = s[nb][2 * r + c];
+        const float p = x == kNegInf ? 0.f : exp2f(x - m_new);
+        s[nb][2 * r + c] = p;
+        lt += p;
+      }
+    st.l[r] = st.l[r] * corr[r] + lt;
+    st.m[r] = m_new;
+  }
+  // P as the A fragment: rows g / g + 8, slots 2t (+1) and 8 + 2t (+1)
+  const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                          pack_bf16(s[0][2], s[0][3]),
+                          pack_bf16(s[1][0], s[1][1]),
+                          pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.o[j][e] *= corr[e >> 1];
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j) {
+    // matrices (slots 0-7, cols 16 j..), (8-15, 16 j..), (0-7, 16 j + 8..),
+    // (8-15, 16 j + 8..), transposed into B fragments
+    uint32_t vf[4];
+    ldmatrix_x4_trans(vf, vs + (mr + 8 * (mi & 1)) * RS +
+                              (16 * j + 8 * (mi >> 1)) * 2);
+    mma_bf16(st.o[2 * j], pa, vf[0], vf[1]);
+    mma_bf16(st.o[2 * j + 1], pa, vf[2], vf[3]);
+  }
+}
+
+// Write the warp's (m, l, O) to its partial slot: O [16][HD], m [16], l [16]
+template <int HD>
+__device__ __forceinline__ void mma_store(MmaState<HD>& st, float* wo,
+                                          float* wm, float* wl) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = st.l[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (t == 0) {
+      wm[g + 8 * r] = st.m[r];
+      wl[g + 8 * r] = l;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(wo + (g + 8 * r) * HD + 8 * j + 2 * t) =
+          make_float2(st.o[j][2 * r], st.o[j][2 * r + 1]);
+  }
+}
+
+// The fp32 route's warp state: lane owns columns lane + 32 j of all 16
+// rows; scores of (row 2 i + (lane >> 4), slot lane & 15), i < 8, with m and
+// l of those rows (l summed over this lane's slots; the half-warp's sum is
+// taken at the end)
+template <int HD>
+struct SimtState {
+  float o[kMaxRep][HD / 32];
+  float m[8], l[8];
+};
+
+template <int HD>
+__device__ __forceinline__ void simt_init(SimtState<HD>& st) {
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r)
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) st.o[r][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    st.m[i] = kNegInf;
+    st.l[i] = 0.f;
+  }
+}
+
+// One 16-slot chunk on the fp32 route; qs is Q [16][HD] fp32, pre-scaled
+template <int HD, int RS>
+__device__ __forceinline__ void simt_chunk(SimtState<HD>& st,
+                                           const float* qs,
+                                           const uint8_t* ks,
+                                           const uint8_t* vs, int s0,
+                                           int end) {
+  const int lane = threadIdx.x & 31, c = lane & 15, h = lane >> 4;
+  float s[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = 0.f;
+  const float4* k4 = reinterpret_cast<const float4*>(ks + c * RS);
+#pragma unroll 4
+  for (int d4 = 0; d4 < HD / 4; ++d4) {
+    const float4 kk = k4[d4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      s[i] = dot4(reinterpret_cast<const float4*>(
+                      qs + (2 * i + h) * HD)[d4], kk, s[i]);
+  }
+  const bool masked = s0 + c >= end;
+  float p[8], corr[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float x = masked ? kNegInf : s[i];
+    float mt = x;
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+    const float m_new = fmaxf(st.m[i], mt);
+    corr[i] = exp2f(st.m[i] - m_new);
+    p[i] = masked ? 0.f : exp2f(x - m_new);
+    st.l[i] = st.l[i] * corr[i] + p[i];
+    st.m[i] = m_new;
+  }
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r) {
+    const float cr = __shfl_sync(0xffffffffu, corr[r >> 1], (r & 1) * 16);
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) st.o[r][j] *= cr;
+  }
+#pragma unroll
+  for (int cc = 0; cc < kDecChunk; ++cc) {
+    const float* vrow = reinterpret_cast<const float*>(vs + cc * RS);
+    float v[HD / 32];
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) v[j] = vrow[lane + 32 * j];
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      const float pr = __shfl_sync(0xffffffffu, p[r >> 1], (r & 1) * 16 + cc);
+#pragma unroll
+      for (int j = 0; j < HD / 32; ++j) st.o[r][j] = fmaf(pr, v[j], st.o[r][j]);
+    }
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void simt_store(SimtState<HD>& st, float* wo,
+                                           float* wm, float* wl) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float l = st.l[i];
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if ((lane & 15) == 0) {
+      wm[2 * i + (lane >> 4)] = st.m[i];
+      wl[2 * i + (lane >> 4)] = l;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r)
+#pragma unroll
+    for (int j = 0; j < HD / 32; ++j) wo[r * HD + lane + 32 * j] = st.o[r][j];
+}
+
+// Four consecutive outputs in T (16 bytes of fp32, 8 of bf16)
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float a, float b, float c,
+                                       float d);
+template <>
+__device__ __forceinline__ void store4<float>(float* p, float a, float b,
+                                              float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float a, float b,
+                                                      float c, float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(a, b), pack_bf16(c, d));
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kDecThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const int* __restrict__ pos,
-              T* __restrict__ out, float* __restrict__ part_ml,
-              float* __restrict__ part_acc, int S, int KV, int rep,
-              int chunk, float scale) {
-  extern __shared__ float4 smem4[];
-  constexpr int QS = HD + 4;
-  float* qs = reinterpret_cast<float*>(smem4);   // [rep][QS]
-  float* ks = qs + rep * QS;                     // [kDecTile][QS]
-  float* vs = ks + kDecTile * QS;                // [kDecTile][HD]
-  float* ps = vs + kDecTile * HD;                // [rep][kDecTile + 1]
-  float* ms = ps + rep * (kDecTile + 1);         // [rep] running max
-  float* ls = ms + rep;                          // [rep] running sum
-  float* cs = ls + rep;                          // [rep] this tile's rescale
+decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                      const T* __restrict__ vc, const int* __restrict__ pos,
+                      T* __restrict__ out, int S, int KV, int rep,
+                      float scale_log2) {
+  using L = DecLayout<T, HD>;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  uint8_t* ring = dec_smem;
+  float* wpart = reinterpret_cast<float*>(dec_smem);          // aliases ring
+  float* qs = reinterpret_cast<float*>(dec_smem + L::WORK);    // fp32 route
+  float* ro = reinterpret_cast<float*>(dec_smem + L::WORK + L::QS);
+  float* rm = ro + kMaxRep * HD + 4 * kMaxCluster;             // [cs][16]
+  float* rl = rm + kMaxCluster * kMaxRep;                      // [cs][16]
 
-  const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-  const int n_split = gridDim.x;
+  // phase 0 of the cluster barrier: this CTA has started (a peer's shared
+  // memory may be written only once it has)
+  cluster_arrive_relaxed();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int g = blockIdx.y, b = blockIdx.z;
   const int H = KV * rep;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const T* qg = q + (static_cast<int64_t>(b) * H + g * rep) * HD;
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  using State = typename std::conditional<kMma, MmaState<HD>,
+                                          SimtState<HD>>::type;
+  State st;                                // Q's loads overlap pos's
+  if constexpr (kMma)
+    mma_init<HD>(st, qg, rep);
+  else
+    simt_init<HD>(st);
   const int n_valid = max(0, min(pos[b] + 1, S));
-  const int k_begin = split * chunk;
-  const int k_end = min(k_begin + chunk, n_valid);
+  int begin, end;
+  cta_range(n_valid, cs, rank, &begin, &end);
+  // this warp's chunks: c = warp, warp + 4, ... of the CTA's share
+  const int n_chunks = (end - begin + kDecChunk - 1) / kDecChunk;
+  const int n_mine = n_chunks > warp
+                         ? (n_chunks - warp + kDecWarps - 1) / kDecWarps
+                         : 0;
   const int64_t row = static_cast<int64_t>(KV) * HD;
-  const T* kb_ = kc + static_cast<int64_t>(b) * S * row + g * HD;
+  const T* kb = kc + static_cast<int64_t>(b) * S * row + g * HD;
   const T* vb = vc + static_cast<int64_t>(b) * S * row + g * HD;
+  uint8_t* wring = ring + warp * L::NST * L::STAGE;
 
-  load_tiles<T, HD, kMaxRep, kDecThreads>(
-      q + (static_cast<int64_t>(b) * H + g * rep) * HD, nullptr, HD, rep,
-      rep, scale, qs, QS, nullptr, 0);
-  if (tid < rep) {
-    ms[tid] = kNegInf;
-    ls[tid] = 0.f;
+  // each warp fills its own ring, every stage at entry, one commit group a
+  // stage, so the sweep needs no block barrier
+#pragma unroll
+  for (int k = 0; k < L::NST; ++k) {
+    if (k < n_mine)
+      load_chunk<T, HD>(wring + k * L::STAGE, kb, vb, row,
+                        begin + (warp + k * kDecWarps) * kDecChunk, end);
+    cp_async_commit();
   }
 
-  constexpr int NO = (kMaxRep * HD + kDecThreads - 1) / kDecThreads;
-  float acc[NO];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j] = 0.f;
-
-  for (int kb = k_begin; kb < k_end; kb += kDecTile) {
-    __syncthreads();                     // last tile's reads (and q) done
-    load_tiles<T, HD, kDecTile, kDecThreads>(kb_ + kb * row, vb + kb * row,
-                                             row, k_end - kb, kDecTile, 1.f,
-                                             ks, QS, vs, HD);
+  if constexpr (!kMma) {
+    // Q [16][HD] fp32, scaled by scale * log2(e), rows >= rep zero
+    for (int i = tid; i < kMaxRep * HD; i += kDecThreads)
+      qs[i] = i / HD < rep ? static_cast<float>(qg[i]) * scale_log2 : 0.f;
     __syncthreads();
-    for (int i = tid; i < rep * kDecTile; i += kDecThreads) {
-      const int r = i / kDecTile, c = i % kDecTile;
-      float s = kNegInf;
-      if (kb + c < k_end) {
-        const float4* a = reinterpret_cast<const float4*>(qs + r * QS);
-        const float4* kk = reinterpret_cast<const float4*>(ks + c * QS);
-        s = 0.f;
-#pragma unroll 4
-        for (int d4 = 0; d4 < HD / 4; ++d4) s = dot4(a[d4], kk[d4], s);
-      }
-      ps[r * (kDecTile + 1) + c] = s;
-    }
-    __syncthreads();
-    for (int r = warp; r < rep; r += kDecThreads / 32) {
-      float* pr = ps + r * (kDecTile + 1);
-      const float s0 = pr[lane], s1 = pr[lane + 32];
-      float mt = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
-      const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, mt);
-      const float p0 = s0 == kNegInf ? 0.f : expf(s0 - m_new);
-      const float p1 = s1 == kNegInf ? 0.f : expf(s1 - m_new);
-      pr[lane] = p0;
-      pr[lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        ls[r] = ls[r] * corr + sum;
-        ms[r] = m_new;
-        cs[r] = corr;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      const int o = tid + j * kDecThreads;
-      const int r = o / HD, d = o % HD;
-      if (r < rep) {
-        const float* pr = ps + r * (kDecTile + 1);
-        float a = acc[j] * cs[r];
-        for (int c = 0; c < kDecTile; ++c) a = fmaf(pr[c], vs[c * HD + d], a);
-        acc[j] = a;
-      }
-    }
   }
-  __syncthreads();                       // ms / ls final for every head
 
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    const int o = tid + j * kDecThreads;
-    const int r = o / HD, d = o % HD;
-    if (r >= rep) continue;
-    if (n_split == 1) {
-      out[(static_cast<int64_t>(b) * H + g * rep + r) * HD + d] =
-          from_f32<T>(acc[j] / fmaxf(ls[r], 1e-30f));
-    } else {
-      const int64_t part =
-          ((static_cast<int64_t>(b) * KV + g) * n_split + split) * rep + r;
-      part_acc[part * HD + d] = acc[j];
-      if (d == 0) {
-        part_ml[2 * part] = ms[r];
-        part_ml[2 * part + 1] = ls[r];
-      }
+  for (int k = 0; k < n_mine; ++k) {
+    cp_async_wait<L::NST - 1>();
+    __syncwarp();                          // chunk k landed for every lane
+    const uint8_t* kw = wring + (k % L::NST) * L::STAGE;
+    const uint8_t* vw = kw + kDecChunk * L::RS;
+    const int s0 = begin + (warp + k * kDecWarps) * kDecChunk;
+    if constexpr (kMma)
+      mma_chunk<HD, L::RS>(st, kw, vw, s0, end, scale_log2);
+    else
+      simt_chunk<HD, L::RS>(st, qs, kw, vw, s0, end);
+    if (k + L::NST < n_mine) {
+      __syncwarp();                        // the stage's reads are done
+      load_chunk<T, HD>(wring + (k % L::NST) * L::STAGE, kb, vb, row,
+                        s0 + L::NST * kDecWarps * kDecChunk, end);
     }
+    cp_async_commit();
   }
-}
+  cp_async_wait<0>();
+  __syncthreads();                         // the ring is free: partials
 
-// The second pass of a split decode: for each (b, head), rescale every
-// split's partial sum to the global max and divide by the global
-// denominator.  One block per (b, head), one thread per output column; the
-// split maxima and their weights exp(m_s - M) go through shared memory, so
-// the per-split loads are independent and can all be in flight together.
-constexpr int kMaxSplit = 512;
-
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_ml,
-                                      const float* __restrict__ part_acc,
-                                      T* __restrict__ out, int KV, int rep,
-                                      int n_split, int hd) {
-  __shared__ float w[kMaxSplit];
-  __shared__ float red[32];
-  const int bh = blockIdx.x, d = threadIdx.x;
-  const int H = KV * rep;
-  const int b = bh / H, h = bh % H, g = h / rep, r = h % rep;
-  const int64_t base =
-      (static_cast<int64_t>(b) * KV + g) * n_split * rep + r;
-  float m = kNegInf;
-  for (int s = d; s < n_split; s += blockDim.x) {
-    w[s] = part_ml[2 * (base + static_cast<int64_t>(s) * rep)];
-    m = fmaxf(m, w[s]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((d & 31) == 0) red[d >> 5] = m;
+  constexpr int WP = kMaxRep * (HD + 2);   // floats of one warp's partial
+  float* wo = wpart + warp * WP;
+  if constexpr (kMma)
+    mma_store<HD>(st, wo, wo + kMaxRep * HD, wo + kMaxRep * HD + kMaxRep);
+  else
+    simt_store<HD>(st, wo, wo + kMaxRep * HD, wo + kMaxRep * HD + kMaxRep);
   __syncthreads();
-  m = red[0];
-  for (int i = 1; i < (blockDim.x + 31) / 32; ++i) m = fmaxf(m, red[i]);
-  for (int s = d; s < n_split; s += blockDim.x) w[s] = expf(w[s] - m);
-  __syncthreads();
-  float l = 0.f, a = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < n_split; ++s) {
-    const int64_t part = base + static_cast<int64_t>(s) * rep;
-    l = fmaf(part_ml[2 * part + 1], w[s], l);
-    a = fmaf(part_acc[part * hd + d], w[s], a);
+
+  // each value of the CTA's (m, l, O), merged from its warps' (m in the
+  // log2 domain), stored straight into the shared memory of the CTA that
+  // owns it: m and l of a row to every CTA, O four columns at a time to the
+  // owner of those outputs
+  const int n4 = rep * HD / 4, per4 = (n4 + cs - 1) / cs;
+  cluster_wait();                          // phase 0: every CTA has started
+  for (int x = tid; x < rep * cs; x += kDecThreads) {
+    const int r = x / cs, c = x % cs;
+    float m = kNegInf, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      m = fmaxf(m, wpart[w * WP + kMaxRep * HD + r]);
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      l = fmaf(wpart[w * WP + kMaxRep * HD + kMaxRep + r],
+               exp2f(wpart[w * WP + kMaxRep * HD + r] - m), l);
+    cluster.map_shared_rank(rm, c)[rank * kMaxRep + r] = m;
+    cluster.map_shared_rank(rl, c)[rank * kMaxRep + r] = l;
   }
-  out[static_cast<int64_t>(bh) * hd + d] = from_f32<T>(a / fmaxf(l, 1e-30f));
+  for (int i4 = tid; i4 < n4; i4 += kDecThreads) {
+    const int r = 4 * i4 / HD;
+    float wm[kDecWarps];
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      wm[w] = wpart[w * WP + kMaxRep * HD + r];
+      m = fmaxf(m, wm[w]);
+    }
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float wt = exp2f(wm[w] - m);
+      const float4 v = reinterpret_cast<const float4*>(wpart + w * WP)[i4];
+      o.x = fmaf(v.x, wt, o.x);
+      o.y = fmaf(v.y, wt, o.y);
+      o.z = fmaf(v.z, wt, o.z);
+      o.w = fmaf(v.w, wt, o.w);
+    }
+    const int owner = i4 / per4;
+    reinterpret_cast<float4*>(cluster.map_shared_rank(ro, owner))
+        [rank * per4 + i4 - owner * per4] = o;
+  }
+  cluster_arrive();                        // phase 1: every partial landed
+  cluster_wait();
+
+  // the outputs this CTA owns, from its own shared memory (no peer is read,
+  // so a CTA may exit as soon as it is done)
+  T* ob = out + (static_cast<int64_t>(b) * H + g * rep) * HD;
+  for (int j4 = tid; j4 < per4 && rank * per4 + j4 < n4;
+       j4 += kDecThreads) {
+    const int i4 = rank * per4 + j4, r = 4 * i4 / HD;
+    float mp[kMaxCluster];
+    float m = kNegInf;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) {
+      if (c < cs) {
+        mp[c] = rm[c * kMaxRep + r];
+        m = fmaxf(m, mp[c]);
+      }
+    }
+    float l = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) {
+      if (c < cs) {
+        const float wt = exp2f(mp[c] - m);
+        const float4 v = reinterpret_cast<const float4*>(ro)[c * per4 + j4];
+        l = fmaf(rl[c * kMaxRep + r], wt, l);
+        o.x = fmaf(v.x, wt, o.x);
+        o.y = fmaf(v.y, wt, o.y);
+        o.z = fmaf(v.z, wt, o.z);
+        o.w = fmaf(v.w, wt, o.w);
+      }
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    store4<T>(ob + 4 * i4, o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+  }
 }
 
 template <typename T, int HD>
@@ -1002,30 +1388,72 @@ int launch_flash_wgmma(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Dynamic shared memory above 48 KB and clusters of 16 (non-portable) for
+// one instance of decode_cluster_kernel, set once per device
+constexpr int kMaxDevices = 64;
+
+template <typename T, int HD>
+cudaError_t decode_prepare() {
+  static std::atomic<int> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && ready[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(decode_cluster_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DecLayout<T, HD>::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(decode_cluster_kernel<T, HD>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    ready[dev].store(1, std::memory_order_release);
+  return err;
+}
+
+// The launch configuration of a (cluster, KV, B) grid, clusters along x
+struct DecodeConfig {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  DecodeConfig(int cluster, int KV, int B, int smem, cudaStream_t st) {
+    cfg.gridDim = dim3(cluster, KV, B);
+    cfg.blockDim = dim3(kDecThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
 template <typename T, int HD>
 cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
-                          const void* pos, void* out, void* part_ml,
-                          void* part_acc, int B, int S, int H, int KV,
-                          int n_split, int chunk, float scale,
-                          cudaStream_t st) {
-  const int rep = H / KV;
-  const int smem = decode_smem_floats<HD>(rep) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      decode_smem_floats<HD>(kMaxRep) * sizeof(float));
+                          const void* pos, void* out, int B, int S, int H,
+                          int KV, int cluster, float scale, cudaStream_t st) {
+  cudaError_t err = decode_prepare<T, HD>();
   if (err != cudaSuccess) return err;
-  dim3 grid(n_split, KV, B);
-  decode_kernel<T, HD><<<grid, kDecThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const int*>(pos),
-      static_cast<T*>(out), static_cast<float*>(part_ml),
-      static_cast<float*>(part_acc), S, KV, rep, chunk, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return err;
-  decode_combine_kernel<T><<<B * H, HD, 0, st>>>(
-      static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
-      static_cast<T*>(out), KV, rep, n_split, HD);
+  DecodeConfig dc(cluster, KV, B, DecLayout<T, HD>::SMEM, st);
+  err = cudaLaunchKernelEx(&dc.cfg, decode_cluster_kernel<T, HD>,
+                           static_cast<const T*>(q), static_cast<const T*>(kc),
+                           static_cast<const T*>(vc),
+                           static_cast<const int*>(pos), static_cast<T*>(out),
+                           S, KV, H / KV, scale * 1.4426950408889634f);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t decode_capacity(int cluster, int* n_clusters) {
+  cudaError_t err = decode_prepare<T, HD>();
+  if (err != cudaSuccess) return err;
+  DecodeConfig dc(cluster, 1, 1, DecLayout<T, HD>::SMEM, nullptr);
+  return cudaOccupancyMaxActiveClusters(n_clusters,
+                                        decode_cluster_kernel<T, HD>,
+                                        &dc.cfg);
 }
 
 }  // namespace
@@ -1061,29 +1489,53 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
 }
 
 // q [B, H, hd], caches [B, S, KV, hd], pos [B] int32 -> out [B, H, hd];
-// part_ml [B, KV, n_split, rep, 2] and part_acc [B, KV, n_split, rep, hd]
-// fp32 scratch when n_split > 1 (unused, may be null, when it is 1).
+// hd in {32, 64, 128}, H / KV <= 16; the CTAs of one (b, kv-head) form a
+// cluster of `cluster` (1..16) CTAs.  The route follows the dtype: bf16 on
+// the tensor cores (mma.sync), fp32 in SIMT.
 int repro_decode_attention(const void* q, const void* kc, const void* vc,
-                           const void* pos, void* out, void* part_ml,
-                           void* part_acc, int B, int S, int H, int KV,
-                           int hd, int n_split, int chunk, float scale,
+                           const void* pos, void* out, int B, int S, int H,
+                           int KV, int hd, int cluster, float scale,
                            int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % KV != 0 || H / KV > kMaxRep || n_split > kMaxSplit)
+  if (KV < 1 || H % KV != 0 || H / KV > kMaxRep || cluster < 1 ||
+      cluster > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
-#define REPRO_DECODE(T, HD)                                              \
-  return launch_decode<T, HD>(q, kc, vc, pos, out, part_ml, part_acc, B, S, \
-                              H, KV, n_split, chunk, scale, st)
+#define REPRO_DECODE(T, HD)                                                \
+  return static_cast<int>(launch_decode<T, HD>(q, kc, vc, pos, out, B, S,  \
+                                               H, KV, cluster, scale, st))
   if (dtype == 0) {
     if (hd == 32) REPRO_DECODE(float, 32);
     if (hd == 64) REPRO_DECODE(float, 64);
     if (hd == 128) REPRO_DECODE(float, 128);
-  } else {
+  } else if (dtype == 1) {
     if (hd == 32) REPRO_DECODE(__nv_bfloat16, 32);
     if (hd == 64) REPRO_DECODE(__nv_bfloat16, 64);
     if (hd == 128) REPRO_DECODE(__nv_bfloat16, 128);
   }
 #undef REPRO_DECODE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many clusters of `cluster` CTAs of the (dtype, hd) instance of the
+// decode kernel the current device can hold at once (0 when it cannot
+// launch that cluster size)
+int repro_decode_cluster_capacity(int hd, int dtype, int cluster,
+                                  int* n_clusters) {
+  *n_clusters = 0;
+  if (cluster < 1 || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_CAPACITY(T, HD) \
+  return static_cast<int>(decode_capacity<T, HD>(cluster, n_clusters))
+  if (dtype == 0) {
+    if (hd == 32) REPRO_CAPACITY(float, 32);
+    if (hd == 64) REPRO_CAPACITY(float, 64);
+    if (hd == 128) REPRO_CAPACITY(float, 128);
+  } else if (dtype == 1) {
+    if (hd == 32) REPRO_CAPACITY(__nv_bfloat16, 32);
+    if (hd == 64) REPRO_CAPACITY(__nv_bfloat16, 64);
+    if (hd == 128) REPRO_CAPACITY(__nv_bfloat16, 128);
+  }
+#undef REPRO_CAPACITY
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

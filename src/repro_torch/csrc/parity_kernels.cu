@@ -24,6 +24,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <stdio.h>
+#include <string.h>
 
 namespace {
 
@@ -296,59 +297,211 @@ void launch_fused(const void* x, const void* C, const void* w, void* out,
 // out[j, e] = sum_h W[h, j] * H[h, e] over the flattened [B*F] element index
 // e, for every output row j (H [H, n], W [H, r] fp32, out [r, n]).
 //
-// Bound on the H100: device-memory bytes.  Each element is read H times and
-// written r times, with one multiply-add per (h, j) pair, so at the
-// main-path shapes (H = 16 hidden units or k = 2 queries, r <= 2) the
-// kernel does well under one FLOP per byte moved.
-// Design: one thread per output element in a grid-stride loop; neighbouring
-// threads read neighbouring addresses of each of the H input rows
-// (coalesced), and each thread accumulates up to kProjRows output rows in
-// fp32 registers, so every input value is read from device memory once for
-// all of them.  Larger r puts further row groups on gridDim.y (each re-reads
-// the input).  The block's W columns are staged in shared memory, where all
-// threads read the same word (a broadcast).  The ragged tail of B*F is the
-// loop bound, so no element outside [0, n) is touched.
-constexpr int kProjRows = 8;
+// Bound on the H100: device-memory bytes.  Each element is read once per
+// input row and written once per output row, with one multiply-add per
+// (h, j) pair, so at the main-path shapes (H = 16 hidden units or k = 2
+// queries, r <= 2) the kernel does well under one FLOP per byte moved: at
+// the learned shape [16, 200, 3072] fp32 the bound is 41.8 MB, 12.5 us.
+// Design: a stream at the HBM rate.
+// - Each thread owns 16 bytes of every input row (4 fp32 or 8 bf16 values)
+//   and issues its loads of up to LOADS rows before its first multiply-add
+//   (in chunks of LOADS rows above that), with streaming hints (__ldcs /
+//   __stcs: every byte is touched once).  LOADS is 16 (256 bytes in flight
+//   per thread), or 4 for H <= 4 (the approxifer's k queries), whose fewer
+//   registers let a grid of one vector per thread fit on the SMs at once.
+// - Up to kProjRows output rows accumulate in fp32 registers (ROWS is 1, 2,
+//   4 or 8, so a small r spends no registers on rows it lacks); larger r
+//   puts further row groups on gridDim.y.  W's columns of the row group sit
+//   in shared memory, where all threads read the same word.
+// - The grid is what the SMs hold at once (the occupancy calculator's
+//   blocks per SM times the SMs): one wave, each thread striding over the
+//   vectors that remain.
+// - Where n is not a multiple of the vector width or a pointer is not
+//   16-byte aligned (rows then start unaligned), the VEC = false instance
+//   loads and stores the same 16-byte share element by element, bounded by
+//   n: nothing outside [0, n) is touched.
+constexpr int kProjRows = 8;     // output rows per row group
+constexpr int kProjLoads = 16;   // input rows loaded before the first FMA
+constexpr int kProjFewLoads = 4; // the same for H <= 4: fewer registers
 
-template <typename T>
+// 16 bytes of T: N values, unpacked to fp32 and packed back
+template <typename T> struct Lanes;
+template <> struct Lanes<float> {
+  static constexpr int N = 4;
+  using Bits = unsigned int;
+  static __device__ __forceinline__ void unpack(const uint4& r,
+                                                float (&x)[4]) {
+    x[0] = __uint_as_float(r.x);
+    x[1] = __uint_as_float(r.y);
+    x[2] = __uint_as_float(r.z);
+    x[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&x)[4]) {
+    return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                      __float_as_uint(x[2]), __float_as_uint(x[3]));
+  }
+};
+template <> struct Lanes<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Bits = unsigned short;
+  static __device__ __forceinline__ void unpack(const uint4& r,
+                                                float (&x)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&x)[8]) {
+    uint4 r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    return r;
+  }
+};
+
+// Elements [e0, e0 + N) of a row as 16 bytes: one vector load, or (VEC =
+// false) one load per element below n, zero past it
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_lanes(const T* row, int64_t e0,
+                                            int64_t n) {
+  using L = Lanes<T>;
+  if constexpr (VEC) {
+    return __ldcs(reinterpret_cast<const uint4*>(row + e0));
+  } else {
+    typename L::Bits b[L::N];
+    const typename L::Bits* src =
+        reinterpret_cast<const typename L::Bits*>(row);
+#pragma unroll
+    for (int k = 0; k < L::N; ++k)
+      b[k] = e0 + k < n ? __ldcs(src + e0 + k) : 0;
+    uint4 r;
+    memcpy(&r, b, sizeof r);
+    return r;
+  }
+}
+
+template <typename T, int ROWS, int LOADS, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 project_kernel(const T* __restrict__ h, const float* __restrict__ w,
                T* __restrict__ out, int H, int r, int64_t n) {
-  extern __shared__ float ws[];             // [H, rows] of this row group
+  using L = Lanes<T>;
+  constexpr int N = L::N;
+  extern __shared__ float ws[];             // [H, ROWS] of this row group
   const int j0 = blockIdx.y * kProjRows;
-  const int rows = min(kProjRows, r - j0);
+  const int rows = min(ROWS, r - j0);
   for (int t = threadIdx.x; t < H * rows; t += blockDim.x)
-    ws[t] = w[(t / rows) * r + j0 + t % rows];
+    ws[(t / rows) * ROWS + t % rows] = w[(t / rows) * r + j0 + t % rows];
   __syncthreads();
+  const int64_t n_vec = (n + N - 1) / N;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+  for (int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
-       e < n; e += stride) {
-    float acc[kProjRows];
+       v < n_vec; v += stride) {
+    const int64_t e0 = v * N;
+    float acc[ROWS][N];
 #pragma unroll
-    for (int j = 0; j < kProjRows; ++j) acc[j] = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < H; ++i) {
-      const float v = to_f32(h[i * n + e]);
-      const float* wi = ws + i * rows;
+    for (int j = 0; j < ROWS; ++j)
 #pragma unroll
-      for (int j = 0; j < kProjRows; ++j)
-        if (j < rows) acc[j] = fmaf(v, wi[j], acc[j]);
+      for (int k = 0; k < N; ++k) acc[j][k] = 0.f;
+    for (int i0 = 0; i0 < H; i0 += LOADS) {
+      const int hc = min(LOADS, H - i0);
+      uint4 raw[LOADS];
+#pragma unroll
+      for (int i = 0; i < LOADS; ++i)
+        if (i < hc) raw[i] = load_lanes<T, VEC>(h + (i0 + i) * n, e0, n);
+#pragma unroll
+      for (int i = 0; i < LOADS; ++i) {
+        if (i < hc) {
+          float x[N];
+          L::unpack(raw[i], x);
+          const float* wi = ws + (i0 + i) * ROWS;
+#pragma unroll
+          for (int j = 0; j < ROWS; ++j)
+#pragma unroll
+            for (int k = 0; k < N; ++k)
+              acc[j][k] = fmaf(x[k], wi[j], acc[j][k]);
+        }
+      }
     }
 #pragma unroll
-    for (int j = 0; j < kProjRows; ++j)
-      if (j < rows) out[(j0 + j) * n + e] = from_f32<T>(acc[j]);
+    for (int j = 0; j < ROWS; ++j) {
+      if (j >= rows) continue;
+      T* o = out + (j0 + j) * n;
+      if constexpr (VEC) {
+        __stcs(reinterpret_cast<uint4*>(o + e0), L::pack(acc[j]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < N; ++k)
+          if (e0 + k < n) o[e0 + k] = from_f32<T>(acc[j][k]);
+      }
+    }
   }
+}
+
+// Blocks of one project_kernel instance that the device's SMs hold at once
+// (queried once per instance)
+template <typename T, int ROWS, int LOADS, bool VEC>
+int project_grid() {
+  static const int blocks = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, project_kernel<T, ROWS, LOADS, VEC>, kThreads,
+        sizeof(float) * LOADS * ROWS);
+    return sms * per_sm > 0 ? sms * per_sm : 1;
+  }();
+  return blocks;
+}
+
+template <typename T, int ROWS, int LOADS, bool VEC>
+void launch_project_rows(const void* h, const void* w, void* out, int H,
+                         int r, int64_t n, cudaStream_t s) {
+  const int64_t n_vec = (n + Lanes<T>::N - 1) / Lanes<T>::N;
+  const int64_t need = (n_vec + kThreads - 1) / kThreads;
+  const int cap = project_grid<T, ROWS, LOADS, VEC>();
+  dim3 grid(static_cast<unsigned>(need < cap ? need : cap),
+            (r + kProjRows - 1) / kProjRows);
+  const size_t smem = sizeof(float) * H * ROWS;
+  project_kernel<T, ROWS, LOADS, VEC><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(h), static_cast<const float*>(w),
+      static_cast<T*>(out), H, r, n);
+}
+
+template <typename T, int ROWS>
+void launch_project_vec(const void* h, const void* w, void* out, int H, int r,
+                        int64_t n, cudaStream_t s) {
+  const bool vec = n % Lanes<T>::N == 0 &&
+                   (reinterpret_cast<uintptr_t>(h) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const bool few = H <= kProjFewLoads;
+  if (vec && few)
+    launch_project_rows<T, ROWS, kProjFewLoads, true>(h, w, out, H, r, n, s);
+  else if (vec)
+    launch_project_rows<T, ROWS, kProjLoads, true>(h, w, out, H, r, n, s);
+  else if (few)
+    launch_project_rows<T, ROWS, kProjFewLoads, false>(h, w, out, H, r, n,
+                                                        s);
+  else
+    launch_project_rows<T, ROWS, kProjLoads, false>(h, w, out, H, r, n, s);
 }
 
 template <typename T>
 void launch_project(const void* h, const void* w, void* out, int H, int r,
                     int64_t n, cudaStream_t s) {
-  dim3 grid(blocks_for(n), (r + kProjRows - 1) / kProjRows);
-  const size_t smem = sizeof(float) * H * (r < kProjRows ? r : kProjRows);
-  project_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(h), static_cast<const float*>(w),
-      static_cast<T*>(out), H, r, n);
+  if (r == 1)
+    launch_project_vec<T, 1>(h, w, out, H, r, n, s);
+  else if (r == 2)
+    launch_project_vec<T, 2>(h, w, out, H, r, n, s);
+  else if (r <= 4)
+    launch_project_vec<T, 4>(h, w, out, H, r, n, s);
+  else
+    launch_project_vec<T, kProjRows>(h, w, out, H, r, n, s);
 }
 
 }  // namespace
@@ -447,8 +600,9 @@ int repro_fused_encode_forward(const void* x, const void* C, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// h [H, n] (dtype); w [H, r] fp32, H * min(r, 8) <= 12288 (48 KB of
-// shared memory); out [r, n] in h's dtype
+// h [H, n] (dtype); w [H, r] fp32, H * 8 <= 12288 where r > 4 (H * 4 where
+// r is 3 or 4, H * r below: 48 KB of shared memory); out [r, n] in h's
+// dtype
 int repro_learned_project(const void* h, const void* w, void* out, int H,
                           int r, long long n, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -44,8 +44,9 @@ _SIGNATURES = {
     "repro_learned_project": [_P, _P, _P, _I, _I, _LL, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _F, _I, _P],
-    "repro_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _P],
+    "repro_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _F, _I, _P],
+    "repro_decode_cluster_capacity": [_I, _I, _I, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

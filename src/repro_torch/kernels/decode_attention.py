@@ -5,35 +5,97 @@ batch row at its own position,
                 vc[b, j, g]                              g = h // rep
 
 Replaces ``repro/kernels/decode_attention.py:decode_attention`` (a Pallas
-TPU kernel) with ``csrc/attention_kernels.cu:decode_kernel``: the rep query
-heads of a KV head share one read of the cache, and the slot sweep is split
-over blocks (flash-decoding) so a small batch still spreads over the SMs,
-with ``decode_combine_kernel`` as the second pass when there is more than
-one split."""
+TPU kernel) with ``csrc/attention_kernels.cu:decode_cluster_kernel``, one
+launch: the rep query heads of a KV head share one read of the cache, the
+slot sweep of each (b, kv-head) is split over the CTAs of a thread-block
+cluster, and the splits combine through distributed shared memory inside
+the launch.  The route follows the dtype and nothing falls back: bf16 runs
+both products on the tensor cores (``mma.sync``, P rounded to bf16 before
+P.V), fp32 in SIMT (it holds the fp32 tolerance, 2e-5).
+
+The launch plan is here, in Python: the cluster size (16 CTAs where the card
+holds as many CTAs in clusters of 16 as in clusters of 8, else 8, decided
+once per kernel instance at first use) and the slots each CTA takes
+(``cta_slots``, the kernel's arithmetic on the device's ``pos``)."""
 from __future__ import annotations
 
+import ctypes
 import math
+import threading
 
 import torch
 
 from repro_torch.kernels import _build
 
 launches = _build.LaunchCounter("decode_attention")
+# launches by route (the dtype picks it); they sum to ``launches``
+ROUTES = {torch.bfloat16: "mma", torch.float32: "simt"}
+route_launches = {name: _build.LaunchCounter(f"decode_attention.{name}")
+                  for name in ROUTES.values()}
 
 HEAD_DIMS = (32, 64, 128)
-MAX_REP = 16              # kMaxRep: query heads per KV head
-TILE = 64                 # kDecTile: slots per tile
-TARGET_BLOCKS = 264       # two blocks per SM of the H100's 132
+MAX_REP = 16              # kMaxRep: query heads per KV head (the mma's M)
+CHUNK = 16                # kDecChunk: slots per warp step (the mma's K)
+CLUSTER_SIZES = (16, 8)   # kMaxCluster (non-portable), then the portable 8
+
+_clusters = {}            # (dtype, hd) -> (cluster size, {size: capacity})
+_clusters_lock = threading.Lock()
 
 
-def split_plan(B, S, KV):
-    """(n_split, chunk): chunks of whole tiles, enough of them that the grid
-    (n_split, KV, B) has about TARGET_BLOCKS blocks, and no more splits than
-    tiles."""
-    n_tiles = max(1, math.ceil(S / TILE))
-    n_split = max(1, min(n_tiles, math.ceil(TARGET_BLOCKS / (B * KV))))
-    chunk = math.ceil(n_tiles / n_split) * TILE
-    return math.ceil(S / chunk), chunk
+def cta_slots(n_valid, cluster):
+    """[begin, end) slots of each CTA rank of one (b, kv-head) cluster for
+    ``n_valid`` valid slots: ceil(n_valid / cluster) rounded up to a multiple
+    of CHUNK each, the last CTAs empty where the rounding leaves them none
+    (``attention_kernels.cu:cta_range``)."""
+    share = math.ceil(math.ceil(n_valid / cluster) / CHUNK) * CHUNK
+    return [(min(r * share, n_valid), min(r * share + share, n_valid))
+            for r in range(cluster)]
+
+
+def cluster_plan(B, KV, cluster):
+    """The launch grid (cluster, KV, B): one cluster of ``cluster`` CTAs per
+    (b, kv-head) along x."""
+    if not 1 <= cluster <= max(CLUSTER_SIZES):
+        raise ValueError(f"decode_attention: cluster size {cluster} not in "
+                         f"1..{max(CLUSTER_SIZES)}")
+    return cluster, KV, B
+
+
+def choose_cluster(capacity):
+    """16 where the card keeps at least as many CTAs resident in clusters
+    of 16 as in clusters of 8 (``capacity``: clusters of each size it holds
+    at once), else 8; raises when it holds no cluster of 8."""
+    big, small = CLUSTER_SIZES
+    if capacity.get(small, 0) < 1:
+        raise RuntimeError(f"decode_attention: the card holds no cluster of "
+                           f"{small} CTAs of the decode kernel ({capacity})")
+    if capacity.get(big, 0) * big >= capacity[small] * small:
+        return big
+    return small
+
+
+def cluster_size(dtype, hd):
+    """The cluster size of the (dtype, hd) kernel instance on the current
+    card, decided at its first use from cudaOccupancyMaxActiveClusters."""
+    key = (dtype, hd)
+    if key not in _clusters:
+        with _clusters_lock:
+            if key not in _clusters:
+                lib = _build.library()
+                capacity = {}
+                for size in CLUSTER_SIZES:
+                    n = ctypes.c_int(0)
+                    rc = lib.repro_decode_cluster_capacity(
+                        hd, _build.dtype_code(dtype), size, ctypes.byref(n))
+                    capacity[size] = n.value if rc == 0 else 0
+                _clusters[key] = (choose_cluster(capacity), capacity)
+    return _clusters[key][0]
+
+
+def cluster_decisions():
+    """{(dtype, hd): (cluster size, {size: clusters the card holds})} for
+    every instance decided so far."""
+    return dict(_clusters)
 
 
 def decode_attention(q, k_cache, v_cache, pos):
@@ -65,22 +127,14 @@ def decode_attention(q, k_cache, v_cache, pos):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    n_split, chunk = split_plan(B, S, KV)
-    rep = H // KV
-    if n_split > 1:
-        part_ml = torch.empty((B, KV, n_split, rep, 2), dtype=torch.float32,
-                              device=q.device)
-        part_acc = torch.empty((B, KV, n_split, rep, hd),
-                               dtype=torch.float32, device=q.device)
-        ptrs = part_ml.data_ptr(), part_acc.data_ptr()
-    else:
-        ptrs = None, None
     lib = _build.library()
     with _build.device_guard(q.device):
+        grid = cluster_plan(B, KV, cluster_size(q.dtype, hd))
         rc = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), *ptrs, B, S, H, KV, hd, n_split,
-            chunk, hd ** -0.5, code, _build.stream(q.device))
+            pos.data_ptr(), out.data_ptr(), B, S, H, KV, hd, grid[0],
+            hd ** -0.5, code, _build.stream(q.device))
     _build.check(rc, name)
     launches.add()
+    route_launches[ROUTES[q.dtype]].add()
     return out

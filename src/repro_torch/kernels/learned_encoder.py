@@ -5,10 +5,12 @@ from the encoder MLP's hidden activations to the r parity rows,
 
 Replaces ``repro/kernels/learned_encoder.py:learned_project`` (a Pallas TPU
 kernel) with ``csrc/parity_kernels.cu:project_kernel``: a memory-bound
-reduction over the small leading axis, one thread per output element with
-all r rows (up to 8 per launch row group) accumulated in fp32 registers, so
-each input value is read once.  ``berrut_encoder.py`` launches the same
-kernel with ``W = C^T``, through ``launch`` below, under its own counter."""
+reduction over the small leading axis, streamed at the HBM rate: each thread
+owns 16 bytes of every input row, issues its loads of up to 16 rows before
+its first multiply-add, and accumulates all r rows (up to 8 per launch row
+group) in fp32 registers, so each input value is read once.
+``berrut_encoder.py`` launches the same kernel with ``W = C^T``, through
+``launch`` below, under its own counter."""
 from __future__ import annotations
 
 import torch
@@ -19,6 +21,12 @@ launches = _build.LaunchCounter("learned_project")
 
 _ROWS = 8                      # kProjRows: output rows per launch row group
 _MAX_SMEM_FLOATS = 12288       # the W columns of one row group: 48 KB
+
+
+def smem_rows(r):
+    """The W columns one row group keeps in shared memory: r rounded up to
+    the kernel instance's 1, 2, 4 or 8 rows."""
+    return next(n for n in (1, 2, 4, _ROWS) if min(r, _ROWS) <= n)
 
 
 def launch(h, w, name):
@@ -33,9 +41,9 @@ def launch(h, w, name):
     code = _build.dtype_code(h.dtype)
     H, B, F = h.shape
     r = w.shape[1]
-    if H < 1 or H * min(r, _ROWS) > _MAX_SMEM_FLOATS:
+    if H < 1 or H * smem_rows(r) > _MAX_SMEM_FLOATS:
         raise ValueError(f"{name}: H={H} with r={r} needs 1 <= "
-                         f"H*min(r, {_ROWS}) <= {_MAX_SMEM_FLOATS}")
+                         f"H*{smem_rows(r)} <= {_MAX_SMEM_FLOATS}")
     out = torch.empty((r, B, F), dtype=h.dtype, device=h.device)
     lib = _build.library()
     with _build.device_guard(h.device):

@@ -102,6 +102,18 @@ def flash_attention_bf16p_ref(q, k, v, *, causal=True, window=0):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _decode_scores(q, k_cache, pos):
+    """Scaled fp32 scores [B, KV, rep, S] of decode attention and the
+    validity mask [B, S] (kpos <= pos[b])."""
+    B, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    qg = q.float().reshape(B, KV, H // KV, hd) * hd ** -0.5
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float())
+    valid = torch.arange(S, device=q.device)[None, :] <= pos[:, None]
+    return s, valid
+
+
 def decode_attention_ref(q, k_cache, v_cache, pos):
     """q [B,H,hd]; caches [B,S,KV,hd]; pos a scalar or [B] per-row positions
     (valid slots: kpos <= pos[b]) -> [B,H,hd] in q's dtype, all in fp32.
@@ -109,13 +121,61 @@ def decode_attention_ref(q, k_cache, v_cache, pos):
     Unlike the JAX package's oracle, which broadcasts a vector ``pos``
     along the wrong axis, a ``[B]`` pos masks row b by ``pos[b]``."""
     B, H, hd = q.shape
-    S, KV = k_cache.shape[1], k_cache.shape[2]
-    rep = H // KV
-    pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
-    qg = q.float().reshape(B, KV, rep, hd) * hd ** -0.5
-    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float())
-    valid = torch.arange(S, device=q.device)[None, :] <= pos[:, None]
+    s, valid = _decode_scores(q, k_cache, pos)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_attention_bf16p_ref(q, k_cache, v_cache, pos):
+    """``decode_attention_ref`` with the one rounding that B8's tensor-core
+    route adds: the unnormalised probabilities exp(s - rowmax) are rounded
+    to bf16 before P.V (the A fragment of ``mma.sync``), while the row sum
+    stays fp32.  A model of that route's numerics for the tests, not a
+    second plain version: the kernel rounds each chunk's p against its
+    warp's running max, this against the row's final max."""
+    B, H, hd = q.shape
+    s, valid = _decode_scores(q, k_cache, pos)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bgrk,bkgd->bgrd", p.to(torch.bfloat16).float(),
+                     v_cache.float()) / p.sum(dim=-1, keepdim=True)
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, pos, splits, *,
+                               bf16_p=False):
+    """A model of B8's split-and-combine numerics for the tests: batch row
+    b's slots are swept in the pieces ``splits[b]`` (a list of [begin, end)
+    ranges, one per CTA of its cluster; empty ones allowed), each piece
+    keeps its own max m, sum l and fp32 accumulator (P rounded to bf16
+    before P.V when ``bf16_p``), and the pieces combine by rescaling to the
+    global max, as the cluster's CTAs do."""
+    B, H, hd = q.shape
+    KV = k_cache.shape[2]
+    s, valid = _decode_scores(q, k_cache, pos)
+    v = v_cache.float()
+    out = torch.zeros((B, KV, H // KV, hd), dtype=torch.float32,
+                      device=q.device)
+    for b in range(B):
+        parts = []
+        for begin, end in splits[b]:
+            if end <= begin:
+                continue
+            if not bool(valid[b, begin:end].all()):
+                raise ValueError(f"split [{begin}, {end}) of row {b} passes "
+                                 f"pos")
+            sb = s[b, :, :, begin:end]
+            m = sb.amax(dim=-1, keepdim=True)
+            p = torch.exp(sb - m)
+            pv = p.to(torch.bfloat16).float() if bf16_p else p
+            acc = torch.einsum("grk,kgd->grd", pv, v[b, begin:end])
+            parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+        if not parts:
+            continue
+        big = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        num = sum(acc * torch.exp(m - big) for m, _, acc in parts)
+        den = sum(l * torch.exp(m - big) for m, l, _ in parts)
+        out[b] = num / den
+    return out.reshape(B, H, hd).to(q.dtype)

@@ -270,14 +270,16 @@ def self_attention_fwd(cfg, p, x, rope_cs, *, window=0, q_offset=0,
 
 
 def self_attention_decode(cfg, p, x, cache, pos, rope_cs, *, window=0,
-                          backend=None):
+                          backend=None, kernel_pos=None):
     """One-token decode. x [B,1,D]; cache {'k','v'} ring buffers [B,S,KV,hd],
     written in place.
 
     ``pos`` is a python int (whole batch at one position) or a [B] tensor
     (slot-batched streams, each at its own position — ``rope_cs`` then holds
     per-row tables [B, hd//2]).  ``backend`` as in
-    :func:`self_attention_fwd`.  Returns (out, cache)."""
+    :func:`self_attention_fwd`.  ``kernel_pos``, where given, is what the
+    decode-attention kernel reads for ``pos`` (an int32 [B] tensor made once
+    per step by ``transformer.decode_step``).  Returns (out, cache)."""
     backend = _backend(cfg, backend)
     q, k, v = _qkv(cfg, p, x, x)
     cos, sin = rope_cs
@@ -304,7 +306,9 @@ def self_attention_decode(cfg, p, x, cache, pos, rope_cs, *, window=0,
         v_cache[:, slot:slot + 1] = v
     if backend == "kernels":
         from repro_torch.kernels import ops as kernel_ops
-        o = kernel_ops.decode_attention_op(q[:, 0], k_cache, v_cache, pos)
+        o = kernel_ops.decode_attention_op(
+            q[:, 0], k_cache, v_cache,
+            pos if kernel_pos is None else kernel_pos)
         o = o[:, None].to(q.dtype)
     else:
         o = attention_decode_xla(q, k_cache, v_cache, pos, window=window)

@@ -163,7 +163,8 @@ def _stack_decode(cfg, stacked, caches, x, pos, ctx, plan):
             h = L.apply_norm(cfg, p["attn"]["norm"], x)
             o, _ = L.self_attention_decode(
                 cfg, p["attn"], h, _group(caches[i]["attn"], g), pos,
-                ctx["rope"], window=ctx["window"])
+                ctx["rope"], window=ctx["window"],
+                kernel_pos=ctx["kernel_pos"])
             x = x + o
             h = L.apply_norm(cfg, p["mlp"]["norm"], x)
             x = x + L.mlp_fwd(cfg, p["mlp"], h)
@@ -244,16 +245,28 @@ def decode_step(cfg, params, cache, pos, token=None, embed=None):
     [B] vector of per-row positions (tensor or numpy) — the slot-batched
     continuous-decoding path, where each batch row is an independent stream.
     Writes the new key/value rows into ``cache`` in place and returns
-    (logits_f32 [B,1,V], cache)."""
+    (logits_f32 [B,1,V], cache).
+
+    ``pos`` is converted once per step, not once per layer: a python int
+    (scalar) or an int64 device tensor (vector) for RoPE and the slot
+    writes, and, on the "kernels" backend, one [B] int32 device tensor that
+    every layer's decode-attention kernel reads as it is."""
     plan = _dense_plan(cfg)
     x = _embed(cfg, params, token, embed)
+    B = x.shape[0]
+    kernels = cfg.attn_backend == "kernels"
     if isinstance(pos, int) or (hasattr(pos, "ndim") and pos.ndim == 0):
         pos = int(pos)
         rope = _rope(cfg, torch.full((1,), pos, device=x.device))
+        kernel_pos = torch.full((B,), pos, dtype=torch.int32,
+                                device=x.device) if kernels else None
     else:
-        pos = torch.as_tensor(pos, device=x.device).long()
+        given = torch.as_tensor(pos, device=x.device)
+        pos = given.long()
         rope = _rope(cfg, pos)
-    ctx = {"rope": rope, "window": cfg.sliding_window}
+        kernel_pos = given.to(torch.int32) if kernels else None
+    ctx = {"rope": rope, "window": cfg.sliding_window,
+           "kernel_pos": kernel_pos}
     x = _stack_decode(cfg, params["blocks"], cache, x, pos, ctx, plan)
     return _logits(cfg, params, x), cache
 

@@ -272,3 +272,84 @@ def test_reduced_lm_kernels_match_torch_backend(cuda):
     for a, b in zip([*out["kernels"][:2], *out["kernels"][2]],
                     [*out["torch"][:2], *out["torch"][2]]):
         _close(a, b, 2e-4, 2e-4)
+
+
+# B8's one-launch cluster kernel: a case for each branch of the plan, in
+# both dtypes, on the card's own cluster size and on 8 and 16 forced
+_B8_PLAN_CASES = [
+    (1, 8, 4, 2, 32, 0),                        # S below one chunk, pos 0
+    (2, 40, 8, 2, 64, [39, 100]),               # pos past S
+    (2, 64, 16, 1, 128, [63, 1]),               # rep 16 at hd 128
+    (1, 8192, 16, 1, 128, 8191),                # one cluster, many tiles
+    (1, 8192, 7, 1, 64, 5000),
+    (4, 1280, 14, 2, 64, [300, 1279, 517, 1031]),   # the LM path's shape
+]
+
+
+@pytest.mark.parametrize("cluster", [None, 8, 16])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,hd,pos", _B8_PLAN_CASES)
+def test_decode_attention_cluster_plan(cuda, monkeypatch, B, S, H, KV, hd,
+                                       pos, dt, cluster):
+    """B8 against its plain version at each branch of the cluster plan, on
+    the route its dtype picks (bf16: mma, fp32: simt)."""
+    from repro_torch.kernels import decode_attention as kd
+    if cluster is not None:
+        monkeypatch.setattr(kd, "cluster_size", lambda *_: cluster)
+    q = torch.randn((B, H, hd), generator=cuda, device="cuda").to(dt)
+    kc = torch.randn((B, S, KV, hd), generator=cuda, device="cuda").to(dt)
+    vc = torch.randn((B, S, KV, hd), generator=cuda, device="cuda").to(dt)
+    route = kd.route_launches[kd.ROUTES[dt]]
+    before = (kd.launches.value, route.value)
+    got = ops.decode_attention_op(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert (kd.launches.value, route.value) == (before[0] + 1, before[1] + 1)
+    _close(got, ref.decode_attention_ref(q, kc, vc, pos), _attn_tol(dt), 0.0)
+
+
+def test_decode_attention_is_one_device_operation(cuda):
+    """20 wrapper calls at the LM path's shape: the counter rises by 20 and
+    the profiler sees 20 launches of decode_cluster_kernel and no other
+    device operation (no combine pass, no scratch fill)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import decode_attention as kd
+    bf = torch.bfloat16
+    q = torch.randn((4, 14, 64), generator=cuda, device="cuda").to(bf)
+    kc = torch.randn((4, 1280, 2, 64), generator=cuda, device="cuda").to(bf)
+    vc = torch.randn((4, 1280, 2, 64), generator=cuda, device="cuda").to(bf)
+    pos = torch.tensor([300, 1279, 517, 1031], dtype=torch.int32,
+                       device="cuda")
+    kd.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    before = kd.launches.value
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            kd.decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+    seen = {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+    assert kd.launches.value == before + 20
+    assert len(seen) == 1 and sum(seen.values()) == 20, seen
+    assert "decode_cluster_kernel" in next(iter(seen))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("H,r,B,F", [(1, 1, 3, 7), (1, 3, 5, 333),
+                                     (40, 3, 2, 1001), (40, 9, 2, 1001),
+                                     (3, 9, 5, 333), (16, 1, 200, 3072)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_project_kernel_edges(cuda, H, r, B, F, dt, aligned):
+    """B5's kernel where n = B*F is not a multiple of the 16-byte vector (4
+    fp32, 8 bf16), with one and with 40 input rows, 3 and 9 output rows (two
+    row groups), and on a view whose data pointer is not 16-byte aligned."""
+    n = H * B * F
+    flat = torch.randn((n + 1,), generator=cuda, device="cuda").to(dt)
+    h = (flat[:n] if aligned else flat[1:]).view(H, B, F)
+    w = torch.randn((H, r), generator=cuda, device="cuda")
+    before = ops.counters()["learned_project"].value
+    got = ops.learned_project_op(h, w)
+    torch.cuda.synchronize()
+    assert ops.counters()["learned_project"].value == before + 1
+    _close(got, ref.learned_project_ref(h, w), _tol(dt) * 4, _tol(dt) * 4)

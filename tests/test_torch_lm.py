@@ -11,6 +11,7 @@ cases (as ``tests/test_kernels.py``), 2e-3 for model logits (as
 ``tests/test_prefill_decode.py``); exact for the roofline arithmetic.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -190,6 +191,111 @@ def test_decode_attention_plain_vs_pallas(B, S, H, KV, hd, pos, dt):
     want = jops.decode_attention_op(jq, jk, jv, pos)
     got = ops.decode_attention_op(tq, tk, tv, pos)
     _close(got, want, 3e-2 if dt == "bfloat16" else F32)
+
+
+# the shapes of the chip smoke test's B8 sweep: scalar and per-row pos, a pos
+# past the cache, rep up to 16, hd 32 / 64 / 128
+_B8_SHAPES = [
+    (2, 512, 4, 2, 64, 100), (1, 1024, 8, 1, 32, 1023),
+    (3, 256, 2, 2, 64, 0), (2, 384, 4, 4, 128, 200),
+    (1, 1024, 8, 1, 32, 0), (3, 256, 2, 2, 64, 255),
+    (3, 16, 4, 2, 64, (2, 9, 5)), (2, 100, 32, 2, 128, (99, 5000)),
+    (4, 1280, 14, 2, 64, (300, 1279, 5, 700)),
+]
+_b8_pallas = {}
+
+
+def _b8_case(shape, dt):
+    """Seeded inputs of a B8 sweep shape as torch tensors in ``dt``, and the
+    JAX package's Pallas kernel (interpret mode) on the same values, computed
+    once per (shape, dtype); its key blocks must tile S (it reads past S
+    otherwise), so S = 1280 takes blocks of 256 instead of 512."""
+    B, S, H, KV, hd, pos = shape
+    rng = np.random.default_rng(S + H + hd)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dt) for a in arrays)
+    if (shape, dt) not in _b8_pallas:
+        jpos = jnp.asarray(pos, jnp.int32)
+        block_k = S if S <= 512 else math.gcd(S, 512)
+        _b8_pallas[shape, dt] = _np(jops.decode_attention_op(
+            jq, jk, jv, jpos, block_k=block_k))
+    return tq, tk, tv, pos, _b8_pallas[shape, dt]
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _B8_SHAPES, ids=str)
+def test_decode_attention_models_vs_pallas(shape, dt, cluster):
+    """The CPU models of the one-launch B8: its split-and-combine over the
+    cluster plan's CTA ranges (with P rounded to bf16 on the bf16 route) and,
+    in bf16, the P-rounding model alone, held against the JAX package's
+    Pallas kernel and the plain version: fp32 at 2e-5, bf16 at 3e-2."""
+    from repro_torch.kernels import decode_attention as kd
+    q, kc, vc, pos, want = _b8_case(shape, dt)
+    B, S = q.shape[0], kc.shape[1]
+    pos_b = np.broadcast_to(np.asarray(pos), (B,))
+    splits = [kd.cta_slots(min(int(p) + 1, S), cluster) for p in pos_b]
+    bf16 = dt == "bfloat16"
+    tol = 3e-2 if bf16 else F32
+    plain = ref.decode_attention_ref(q, kc, vc, pos).float()
+    models = [ref.decode_attention_split_ref(q, kc, vc, pos, splits,
+                                             bf16_p=bf16)]
+    if bf16:
+        models.append(ref.decode_attention_bf16p_ref(q, kc, vc, pos))
+    for got in models:
+        assert got.dtype == q.dtype and got.shape == q.shape
+        _close(got, want, tol)
+        _close(got, plain, tol)
+
+
+@pytest.mark.parametrize("cluster", [1, 8, 16])
+def test_decode_cluster_plan_covers_each_slot_once(cluster):
+    """Every slot j < n_valid is taken by exactly one CTA of the cluster,
+    every range starts on a 16-slot chunk, and no CTA reads past pos."""
+    from repro_torch.kernels import decode_attention as kd
+    for n_valid in [0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 300, 301,
+                    1000, 1280, 4096, 8191, 8192]:
+        ranges = kd.cta_slots(n_valid, cluster)
+        assert len(ranges) == cluster
+        seen = np.zeros(n_valid, int)
+        for begin, end in ranges:
+            assert 0 <= begin <= end <= n_valid
+            assert begin % kd.CHUNK == 0 or begin == n_valid
+            seen[begin:end] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,KV", [(4, 2), (1, 1), (3, 5)])
+def test_decode_cluster_plan_grid(B, KV):
+    """The cluster size is at most 16 and divides the grid's x extent; the
+    card's decision takes 16 only where it holds as many CTAs in clusters
+    of 16 as in clusters of 8."""
+    from repro_torch.kernels import decode_attention as kd
+    for cluster in (8, 16):
+        grid = kd.cluster_plan(B, KV, cluster)
+        assert grid == (cluster, KV, B) and grid[0] % cluster == 0
+        assert cluster <= 16
+    for bad in (0, 17, 32):
+        with pytest.raises(ValueError, match="cluster size"):
+            kd.cluster_plan(B, KV, bad)
+    assert kd.choose_cluster({16: 8, 8: 16}) == 16
+    assert kd.choose_cluster({16: 7, 8: 16}) == 8
+    assert kd.choose_cluster({16: 0, 8: 16}) == 8
+    with pytest.raises(RuntimeError, match="no cluster"):
+        kd.choose_cluster({16: 0, 8: 0})
+
+
+@pytest.mark.parametrize("H,KV,hd", [(4, 2, 48), (4, 2, 256), (17, 1, 64),
+                                     (34, 2, 64), (6, 4, 64)])
+def test_decode_attention_wrapper_limits_raise(H, KV, hd):
+    """hd outside (32, 64, 128), rep above 16 or H not a multiple of KV
+    raise before anything reaches the card."""
+    from repro_torch.kernels import decode_attention as kd
+    q = torch.zeros((2, H, hd))
+    kc = torch.zeros((2, 8, KV, hd))
+    with pytest.raises(ValueError, match="hd in"):
+        kd.decode_attention(q, kc, kc, torch.zeros(2, dtype=torch.int32))
 
 
 def test_decode_attention_vector_pos_against_decode_xla():
@@ -569,6 +675,50 @@ def test_vector_pos_decode_rows_independent(qwen, backend):
         log_b, _ = T.decode_step(tcfg, tp, solo[b], int(pos[b]),
                                  token=tok[b:b + 1])
         _close(log_v[b], log_b[0], 2e-4, 2e-4)
+
+
+def _decode_step_pos_per_layer(cfg, params, cache, pos, token):
+    """``decode_step`` as it was before ``pos`` was converted once per step:
+    every layer hands its decode attention ``pos`` itself (a python int or
+    an int64 tensor), to be converted there."""
+    x = T._embed(cfg, params, token, None)
+    if isinstance(pos, int):
+        rope = T._rope(cfg, torch.full((1,), pos))
+    else:
+        pos = torch.as_tensor(pos).long()
+        rope = T._rope(cfg, pos)
+    ctx = {"rope": rope, "window": cfg.sliding_window, "kernel_pos": None}
+    x = T._stack_decode(cfg, params["blocks"], cache, x, pos, ctx,
+                        T._dense_plan(cfg))
+    return T._logits(cfg, params, x), cache
+
+
+@pytest.mark.parametrize("backend", ["kernels", "torch"])
+@pytest.mark.parametrize("kind", ["int", "numpy", "int64", "int32"])
+def test_decode_step_pos_converted_once_bit_equal(qwen, backend, kind):
+    """Converting ``pos`` once per step changes no bit: logits and caches
+    equal (``torch.equal``) those of the per-layer conversion, for a scalar
+    pos and for a [B] pos given as numpy, int64 and int32."""
+    jcfg, _, tp = qwen
+    tcfg = tbase.get_config("qwen2-0.5b", reduced=True).replace(
+        attn_backend=backend)
+    B, S = 3, 12
+    rng = np.random.default_rng(13)
+    cache = T.init_cache(tcfg, B, S, device="cpu")
+    for leaf in tree_leaves(cache):
+        leaf.copy_(torch.tensor(rng.standard_normal(tuple(leaf.shape)),
+                                dtype=leaf.dtype))
+    want_cache = jax.tree.map(torch.clone, cache)
+    tok = torch.tensor(rng.integers(0, jcfg.vocab, (B, 1)))
+    pos = {"int": 7, "numpy": np.array([3, 7, 11]),
+           "int64": torch.tensor([3, 7, 11]),
+           "int32": torch.tensor([3, 7, 11], dtype=torch.int32)}[kind]
+    got, cache = T.decode_step(tcfg, tp, cache, pos, token=tok)
+    want, want_cache = _decode_step_pos_per_layer(tcfg, tp, want_cache, pos,
+                                                  tok)
+    assert torch.equal(got, want)
+    for a, b in zip(tree_leaves(cache), tree_leaves(want_cache)):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------
