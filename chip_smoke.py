@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. device    — print the card's name and power limit, build the CUDA kernels
                from ``src/repro_torch/csrc`` (``nvcc``, ``sm_90a``);
 2. kernels   — hold each kernel against its plain PyTorch version on the card
-               (test sweeps in fp32 and bf16, then the main-path shapes) and
-               time it beside the plain version, one PyTorch library call for
-               the same function, and its bound;
+               (test sweeps in fp32 and bf16, B2's also through the
+               bounds-checked build, then the main-path shapes) and time it
+               beside the plain version, one PyTorch library call for the
+               same function, its bound, and an empty launch;
 3. serve     — the paper's MLP (784-200-100-10) trained on the card, ``sum``
                parity at k=2 provisioned, and 120 queries served through
                ``deploy(spec, engine="threads")`` with a straggling instance;
@@ -267,8 +268,9 @@ def kernel_name(sym):
     args = re.match(r"I(.*?)EE", sym[i:])
     if not args:
         return name
-    names = {"13__nv_bfloat16": "bf16", "f": "float"}
-    toks = re.findall(r"13__nv_bfloat16|Li\d+|f", args.group(1))
+    names = {"13__nv_bfloat16": "bf16", "f": "float", "Lb1": "true",
+             "Lb0": "false"}
+    toks = re.findall(r"13__nv_bfloat16|Li\d+|Lb[01]|f", args.group(1))
     return f"{name}<{', '.join(names.get(t, t[2:]) for t in toks)}>"
 
 
@@ -299,19 +301,11 @@ def sweep_kernels():
                                                   1.0 / float(c[j])),
                             tol(dt) * k, 2e-2)
                 n += 1
-    for k, r, B, F, V in [(2, 1, 4, 512, 128), (3, 1, 5, 300, 130),
-                          (2, 3, 8, 1024, 257), (4, 2, 1, 129, 64),
-                          (4, 2, 8, 1000, 100), (2, 1, 1000, 784, 200)]:
-        for dt in (torch.float32, torch.bfloat16):
-            q = randn(gen, (k, B, F), dt)
-            C = randn(gen, (r, k), torch.float32)
-            W = randn(gen, (r, F, V), dt)
-            mul = math.sqrt(F * k)
-            check_close(f"fused {k,r,B,F,V,dt}",
-                        ops.fused_encode_forward_op(q, C, W),
-                        ref.fused_encode_forward_ref(q, C, W),
-                        tol(dt) * mul, tol(dt) * mul)
-            n += 1
+    t0 = time.perf_counter()
+    _build.library(checked=True)
+    log(f"[kernels] checked build (-DREPRO_CHECKED -lineinfo) built and "
+        f"loaded in {time.perf_counter() - t0:.2f} s")
+    n += sweep_fused(gen)
     for G, k, B, V in [(1, 2, 1, 9), (5, 3, 4, 100), (4, 4, 2, 257),
                        (1000, 2, 1, 10)]:
         for dt in (torch.float32, torch.bfloat16):
@@ -403,6 +397,65 @@ def sweep_kernels():
     return n
 
 
+# B2's sweep: ragged F, B and V, unaligned rows, F smaller than the cluster
+# (2, 1, 4, 3, 64), F = 0, B = 1, k = 8, and shapes whose fp32 cluster size
+# on an H100 is 1, 2 and 4 (5 is the A_d shape's, 8 the small shapes')
+FUSED_SWEEP = [(2, 1, 4, 512, 128), (3, 1, 5, 300, 130), (2, 3, 8, 1024, 257),
+               (4, 2, 1, 129, 64), (4, 2, 8, 1000, 100), (2, 1, 1000, 784, 200),
+               (2, 1, 4, 3, 64), (2, 1, 4, 0, 64), (8, 2, 33, 200, 72),
+               (2, 1, 4000, 784, 200), (2, 1, 2400, 784, 256),
+               (2, 1, 1280, 784, 256)]
+
+
+def sweep_fused(gen):
+    """B2 over FUSED_SWEEP in the four dtype pairs, through the op and
+    through the bounds-checked build (a REPRO_CHECK trap there fails the
+    CUDA context, and with it this run); the tolerance follows the queries'
+    dtype, the output's."""
+    n = 0
+    for k, r, B, F, V in FUSED_SWEEP:
+        for dx, dw in [(a, b) for a in (torch.float32, torch.bfloat16)
+                       for b in (torch.float32, torch.bfloat16)]:
+            q = randn(gen, (k, B, F), dx)
+            C = randn(gen, (r, k), torch.float32)
+            W = randn(gen, (r, F, V), dw)
+            mul = math.sqrt(max(F, 1) * k)
+            want = ref.fused_encode_forward_ref(q, C, W)
+            check_close(f"fused {k,r,B,F,V,dx,dw}",
+                        ops.fused_encode_forward_op(q, C, W), want,
+                        tol(dx) * mul, tol(dx) * mul)
+            check_close(f"fused checked build {k,r,B,F,V,dx,dw}",
+                        k_fused.launch(q, C, W, checked=True), want,
+                        tol(dx) * mul, tol(dx) * mul)
+            n += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_encode_forward: {n} sweep cases, each also through "
+        f"the checked build (REPRO_CHECK on every index): no trap")
+    return n
+
+
+def one_launch(label, fn, kernel):
+    """Raise unless 20 calls of ``fn`` issue 20 launches of ``kernel`` and
+    no other device operation."""
+    seen = device_ops(fn)
+    if len(seen) != 1 or sum(seen.values()) != 20 or \
+            kernel not in next(iter(seen)):
+        raise AssertionError(f"{label}: 20 calls issued {seen} on the "
+                             f"device, not 20 launches of {kernel}")
+
+
+def empty_launch_ms():
+    """Device time of one empty kernel launched through the kernels' ctypes
+    path (``repro_empty_launch``): the floor a launch-bound kernel sits
+    on."""
+    lib = _build.library()
+    dev = torch.device(DEV, torch.cuda.current_device())
+
+    def call():
+        _build.check(lib.repro_empty_launch(_build.stream(dev)), "empty")
+    return device_ms(call, "empty_kernel", iters=200)
+
+
 def sdpa(q, k, v, **kw):
     """The library yardstick: one scaled_dot_product_attention call on
     [B, H, S, hd] views, GQA by ``enable_gqa`` (timed only, never called by
@@ -464,11 +517,7 @@ def attention_rows(gen):
 
     got = b8()
     want = ref.decode_attention_ref(q, kc, vc, pos)
-    seen = device_ops(b8)
-    if len(seen) != 1 or sum(seen.values()) != 20 or \
-            "decode_cluster_kernel" not in next(iter(seen)):
-        raise AssertionError(f"B8: 20 calls issued {seen} on the device, "
-                             f"not 20 launches of decode_cluster_kernel")
+    one_launch("B8", b8, "decode_cluster_kernel")
     log("[kernels] decode_attention: 20 calls of the wrapper issue 20 "
         "launches of decode_cluster_kernel and no other device operation")
     for (dt, hd_), (size, capacity) in sorted(
@@ -546,6 +595,8 @@ def measure_kernels():
                             "encode_kernel"),
         plain_ms=time_ms(lambda: ref.parity_encode_ref(q, c)),
         library_ms=time_ms(lambda: torch.einsum("k,kbf->bf", c, q)),
+        library_device_ms=library_device_ms(
+            lambda: torch.einsum("k,kbf->bf", c, q)),
         bound=bound((k + 1) * B * F * es + k * 4, 2 * k * B * F, f32))
 
     # B3: one group's decode, 10 logits per member, with the k + 1
@@ -576,12 +627,7 @@ def measure_kernels():
                       ("decode_one", b3_scheme)):
         check_close(f"B3 {label}", fn().reshape(want.shape), want, 2e-5 * k,
                     2e-2)
-        seen = device_ops(fn)
-        if len(seen) != 1 or sum(seen.values()) != 20 or \
-                "parity_decode_kernel" not in next(iter(seen)):
-            raise AssertionError(f"B3 {label}: 20 calls issued {seen} on "
-                                 f"the device, not 20 launches of "
-                                 f"parity_decode_kernel")
+        one_launch(f"B3 {label}", fn, "parity_decode_kernel")
     log("[kernels] parity_decode: 20 calls of the wrapper, of the op and of "
         "LinearScheme.decode_one each issue 20 launches of "
         "parity_decode_kernel and no other device operation")
@@ -594,6 +640,8 @@ def measure_kernels():
         plain_ms=time_ms(
             lambda: ref.parity_decode_ref(par, outs, avail_d, inv_c)),
         library_ms=time_ms(lambda: torch.einsum("k,kbv->bv", w, stack)),
+        library_device_ms=library_device_ms(
+            lambda: torch.einsum("k,kbv->bv", w, stack)),
         bound=bound((k + 2) * B * V * es + (k + 1) * 4,
                     (2 * k + 1) * B * V, f32))
 
@@ -619,10 +667,17 @@ def measure_kernels():
                             "mg_decode_kernel"),
         plain_ms=time_ms(lambda: ref.multigroup_decode_ref(po, outs, cmat)),
         library_ms=time_ms(lambda: torch.einsum("gk,gkbv->gbv", wg, stack)),
+        library_device_ms=library_device_ms(
+            lambda: torch.einsum("gk,gkbv->gbv", wg, stack)),
         bound=bound(G * (k + 2) * B * V * es + G * (k + 1) * 4,
                     G * (2 * k + 1) * B * V, f32))
 
-    # B2: the A_d path's fused encode + first layer, 1000 groups
+    # Back-to-back calls find inputs below 50 MB in L2; cold_device_ms
+    # writes 64 MB between calls, so the kernel reads device memory
+    flush = torch.empty(64 * 2 ** 20 // 4, device=DEV)
+
+    # B2: the A_d path's fused encode + first layer, 1000 groups; one call
+    # is one launch of the cluster kernel and no other device operation
     k, r, B, F, V = K, 1, 1000, 784, 200
     q = randn(gen, (k, B, F), f32)
     C = torch.ones((r, k), device=DEV)
@@ -630,24 +685,45 @@ def measure_kernels():
     got = k_fused.fused_encode_forward(q, C, W)
     want = ref.fused_encode_forward_ref(q, C, W)
     mul = math.sqrt(F * k)
+
+    def b2():
+        return k_fused.fused_encode_forward(q, C, W)
+
+    def b2_library():
+        return torch.bmm(torch.einsum("rk,kbf->rbf", C, q), W)
+
+    one_launch("B2", b2, "fused_cluster_kernel")
+    S, clusters = k_fused.card_plan(q, W)
+    _, _, S_plan, grid = k_fused.fused_plan(k, r, B, F, V, clusters)
+    if S_plan != S:
+        raise AssertionError(f"B2: fused_plan picks {S_plan}, the kernel {S}")
+    log(f"[kernels] fused_encode_forward: 20 calls of the wrapper issue 20 "
+        f"launches of fused_cluster_kernel and no other device operation; "
+        f"clusters of {S} CTAs, grid {grid}; clusters the card holds at once "
+        f"by size: {clusters}")
     rows["fused_encode_forward"] = dict(
         shape=[k, B, F, r, V],
         replaces="src/repro/kernels/fused_encode_forward.py:61",
         max_abs_err=check_close("B2", got, want, 2e-5 * mul, 2e-5 * mul),
-        ms=time_ms(lambda: k_fused.fused_encode_forward(q, C, W)),
-        device_ms=device_ms(lambda: k_fused.fused_encode_forward(q, C, W),
-                            "fused_kernel"),
+        ms=time_ms(b2),
+        device_ms=device_ms(b2, "fused_cluster_kernel"),
+        cold_device_ms=device_ms(lambda: (flush.fill_(0.0), b2()),
+                                 "fused_cluster_kernel"),
         plain_ms=time_ms(lambda: ref.fused_encode_forward_ref(q, C, W)),
-        library_ms=time_ms(lambda: torch.bmm(
-            torch.einsum("rk,kbf->rbf", C, q), W)),
+        library_ms=time_ms(b2_library),
+        library_device_ms=library_device_ms(b2_library),
         bound=bound((k * B * F + r * F * V + r * B * V) * es + r * k * 4,
                     2 * r * k * B * F + 2 * r * B * F * V, f32))
+    floor = empty_launch_ms()
+    beside = ", ".join(f"{name} {fmt_ms(rows[name]['device_ms'])}" for name in
+                       ("parity_encode", "parity_decode", "multigroup_decode"))
+    log(f"[kernels] empty launch (empty_kernel through the ctypes path) "
+        f"device_ms={fmt_ms(floor)}; beside it {beside}")
+    for name in ("parity_encode", "parity_decode", "multigroup_decode"):
+        rows[name]["empty_launch_device_ms"] = floor
 
     # B5 and B6 at the four shapes phases 5-6 give them (A_d over 200
     # groups of two 32x32x3 images); the first of each is the JSON row.
-    # Back-to-back calls find inputs below 50 MB in L2; cold_device_ms
-    # writes 64 MB between calls, so the kernel reads device memory
-    flush = torch.empty(64 * 2 ** 20 // 4, device=DEV)
 
     def project_row(label, shape, counter):
         H, B, F, r = shape                  # H is k for the berrut encode
@@ -1365,7 +1441,8 @@ def kernel_entry(name, row, launches, by_path):
             "launches_by_path": by_path,
             **{key: row[key] for key in (
                 "op_ms", "decode_one_ms", "library_device_ms",
-                "cold_device_ms", "device_ms_by_cluster",
+                "cold_device_ms", "empty_launch_device_ms",
+                "device_ms_by_cluster",
                 "one_slot_device_ms") if key in row}}
 
 

@@ -15,16 +15,43 @@
 //                         parity_decode
 //   mg_decode_kernel      replaces repro/kernels/multigroup_decode.py:
 //                         multigroup_decode
-//   fused_kernel          replaces repro/kernels/fused_encode_forward.py:
-//                         fused_encode_forward
+//   fused_cluster_kernel  replaces repro/kernels/fused_encode_forward.py:
+//                         fused_encode_forward, split over F inside a
+//                         thread-block cluster
 //   project_kernel        replaces repro/kernels/learned_encoder.py:
 //                         learned_project, and through it repro/kernels/
 //                         berrut_encoder.py:berrut_encode (W = C^T)
+//   empty_kernel          a measurement probe, not a port of anything
+//
+// Built with -DREPRO_CHECKED (kernels/_build.py: library(checked=True)),
+// REPRO_CHECK(cond) prints the failed condition and traps; otherwise it is
+// empty.  It guards the indices of fused_cluster_kernel.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <stdio.h>
 #include <string.h>
+
+#include <atomic>
+#include <type_traits>
+
+#ifdef REPRO_CHECKED
+#define REPRO_CHECK(cond)                                                   \
+  do {                                                                      \
+    if (!(cond)) {                                                          \
+      printf("REPRO_CHECK failed: %s (%s:%d, block %d %d %d, thread %d)\n", \
+             #cond, __FILE__, __LINE__, blockIdx.x, blockIdx.y, blockIdx.z, \
+             threadIdx.x);                                                  \
+      __trap();                                                             \
+    }                                                                       \
+  } while (0)
+#else
+#define REPRO_CHECK(cond) \
+  do {                    \
+  } while (0)
+#endif
 
 namespace {
 
@@ -145,152 +172,653 @@ parity_decode_kernel(const T* __restrict__ p, const T* __restrict__ o,
 
 // ---------------------------------------------------------------- fused ----
 // out[j, b, v] = sum_f (sum_i C[j, i] * X[i, b, f]) * W[j, f, v]
+// queries X [k, B, F], coeffs C [r, k] fp32, weights W [r, F, V], out
+// [r, B, V] in X's dtype.  Replaces repro/kernels/fused_encode_forward.py:
+// fused_encode_forward (B2).
 //
 // Bound on the H100: operations.  On the A_d path ([2,1000,784] x
-// [1,784,200]) it is 0.31 GFLOP against ~7.7 MB of traffic, and fp32 must
-// stay IEEE fp32 (the reference tolerance rules out TF32 tensor cores), so
-// the ceiling is the 67 TFLOP/s SIMT fp32 rate, about 5 us.
-// Design: a tiled SIMT GEMM with the encode folded into the A-operand load.
-// One block owns a [FBM x FBN] output tile of parity row j (blockIdx.z) and
-// walks F in FBK-deep steps: it combines the k query tiles with C[j, :] into
-// an fp32 encoded tile in shared memory (the [r, B, F] encoded queries never
-// reach device memory), stages the W[j] tile next to it, and each thread
-// accumulates a 4x4 register tile with FMAs.  At the A_d shape the grid is
-// only about one block per SM, so the kernel is bound by load latency rather
-// than by the FMA rate: the global loads of step s+1 go to registers and
-// are issued before the FMAs of step s, and all loads of one coding row
-// issue together, so few load latencies are exposed per step.  Out-of-range
-// rows of B, columns of V and the ragged F tail are zero-filled in BOTH
-// tiles (0 * junk is not 0 when the junk is NaN), and stores are masked at
-// the B and V edges.  Loads walk the contiguous dimension across a warp's
-// lanes (coalesced), the encoded tile is padded one column against bank
-// conflicts, and W rows are read as float4.  No tensor cores, no TMA: a
-// bf16 wgmma path is later work.
-constexpr int FBM = 32;   // batch rows per block
-constexpr int FBN = 64;   // output columns per block
-constexpr int FBK = 32;   // contraction depth per step
-constexpr int FTM = 4;    // rows per thread
-constexpr int FTN = 4;    // columns per thread
-constexpr int FTHREADS = (FBM / FTM) * (FBN / FTN);   // 128
-constexpr int ENC_PER_T = FBK * FBM / FTHREADS;       // 8
-constexpr int W_PER_T = FBK * FBN / FTHREADS;         // 16
-static_assert(FTN == 4, "W rows are read as one float4 per thread");
-static_assert(ENC_PER_T * FTHREADS == FBK * FBM &&
-                  W_PER_T * FTHREADS == FBK * FBN,
-              "tiles split evenly over the block's threads");
+// [1,784,200] fp32) it is 0.31 GFLOP against ~7.7 MB of traffic, and fp32
+// stays IEEE fp32 (the reference tolerance rules out TF32 tensor cores), so
+// the ceiling is the 67 TFLOP/s SIMT rate: 4.7 us.  Two things keep a SIMT
+// GEMM of this size from it: too few warps per SM (a grid of output tiles
+// alone is about one block per SM), and, per contraction step, loads and
+// the encode that stall every warp between its FMA runs.
+// Design: one launch, a split-F thread-block cluster per output tile, and
+// producer warps that feed four FMA warps.
+// - Tiles of kFBM x kFBN outputs of parity row j; the S CTAs of a cluster
+//   (S = 1..8, along x) each walk their own slice of F: steps [rank * n /
+//   S, (rank + 1) * n / S) of the n = ceil(F / kFBK) steps (fused_slices in
+//   kernels/fused_encode_forward.py is the same arithmetic).  S is the
+//   largest cluster size whose clusters all fit on the card at once
+//   (cudaOccupancyMaxActiveClusters, read once per instance, device and k;
+//   fused_plan mirrors the rule): as many warps as one wave holds, and no
+//   second wave.  At the A_d shape: 64 tiles, S = 5 on an H100 (it holds
+//   69 clusters of 5), 320 CTAs of 8 warps, 5 steps each.
+// - Warps 4-7 produce.  Thread 128 asks TMA for each step's boxes, the k
+//   query tiles [k][kFBM][kFBK] and the W tile [kFBK][kFBN] in their own
+//   dtypes, rows of 128 bytes in fp32 (TMA's rate falls with narrower
+//   rows), into a ring of two stages; TMA zero-fills past B, V and F, so
+//   both operands are 0 there (0 * junk is not 0 when the junk is NaN).
+//   Once a stage lands (its mbarrier's transaction count), the four warps
+//   encode it, sum_i C[j, i] X_i in fp32, into an fp32 [kFBM][kFBK + 4]
+//   tile (bf16 W is widened beside it), so the encoded [r, B, F] queries
+//   never reach device memory, and arrive on the stage's "encoded"
+//   mbarrier.  A stage is refilled when the FMA warps have released it.
+//   Where a row is not 16-byte aligned (F or V not a whole vector, a
+//   pointer off 16 bytes) or F = 0, the TMA = false instance loads the same
+//   boxes element by element, never outside [0, F), [0, B) or [0, V).
+// - Warps 0-3 only multiply: each thread keeps a 4 x 8 fp32 register tile
+//   (fused_row / fused_col); per four steps of depth it reads four float4s
+//   of the encoded tile and eight of W for 128 FMAs, waits on nothing but
+//   the stage's mbarrier, and releases the stage with one arrive per warp.
+//   No __syncthreads in the loop.
+// - The partial tiles sum through distributed shared memory: once every
+//   CTA of the cluster has left its loop (a cluster barrier), thread row ty
+//   (4 output rows) belongs to CTA ty / ceil(16 / S), and every CTA stores
+//   its partial of those rows straight into the owner's shared memory, in
+//   the slot of its rank (the ring is free by then, and holds the slots).
+//   One cluster barrier later each owner sums the S slots in rank order (a
+//   fixed order: the result is deterministic) and writes its rows.  No
+//   atomics, no scratch tensor, no second launch.
+// - fp32 is fmaf throughout; bf16 inputs are widened and accumulated in
+//   fp32.  An mbarrier wait that never completes traps after ~2 s.  k is
+//   at most 8 (two fp32 stages of 8 query tiles fill the shared memory).  A
+//   bf16 wgmma route is later work.
+constexpr int kFBM = 64;                   // batch rows of an output tile
+constexpr int kFBN = 64;                   // output columns of a tile
+constexpr int kFBK = 32;                   // contraction depth of a stage
+constexpr int kFTM = 4;                    // rows per thread
+constexpr int kFTN = 8;                    // columns per thread
+constexpr int kFMaxStages = 2;
+constexpr int kFMinBlocks = 3;             // resident CTAs the registers allow
+constexpr int kFRowsT = kFBM / kFTM;       // 16 thread rows
+constexpr int kFColsT = kFBN / kFTN;       // 8 thread columns
+constexpr int kFProducerWarps = 4;
+constexpr int kFConsumers = kFRowsT * kFColsT;   // 128 FMA threads
+constexpr int kFWarps = kFConsumers / 32;        // the first producer warp
+constexpr int kFProducers = 32 * kFProducerWarps;
+constexpr int kFThreads = kFConsumers + kFProducers;
+constexpr int kFMaxCluster = 8;            // the portable cluster size
+constexpr int kFMaxK = 8;                  // queries per group (ring size)
+constexpr int kFEncLd = kFBK + 4;          // padded: conflict-free reads
+constexpr int kFMaxSmem = 231424;      // the opt-in 227 KB less 1 KB static
+constexpr long long kFHangCycles = 4000000000LL;  // ~2 s: a wait traps
+static_assert(kFTN % 4 == 0 && kFBK % 4 == 0,
+              "fragments are read as float4s");
+static_assert(kFConsumers % 32 == 0, "whole FMA warps");
 
-// Global loads of one F step into registers: the W[j] tile, then the
-// encoded A tile (k query rows combined with C[j, :]), zero outside the
-// ranges.  The coding row index i is the outer loop, so each row's loads are
-// independent and issue back to back instead of one latency per element.
-template <typename TX, typename TW>
-__device__ __forceinline__ void fused_load(
-    const TX* __restrict__ x, const float* __restrict__ cj,
-    const TW* __restrict__ wj, int k, int B, int F, int V, int b0, int v0,
-    int f0, int tid, float (&enc_r)[ENC_PER_T], float (&w_r)[W_PER_T]) {
-#pragma unroll
-  for (int u = 0; u < W_PER_T; ++u) {
-    const int e = tid + u * FTHREADS;
-    const int f = f0 + e / FBN;
-    const int v = v0 + e % FBN;
-    w_r[u] = (f < F && v < V) ? to_f32(wj[static_cast<int64_t>(f) * V + v])
-                              : 0.f;
+__host__ __device__ inline int fused_per(int S) {
+  return (kFRowsT + S - 1) / S;            // thread rows each owner takes
+}
+
+// A thread's fragment: row i of its kFTM rows, kFRowsT rows apart (a
+// warp's four thread rows are consecutive, so its float4 reads of the
+// encoded tile cover distinct banks), and column t of its kFTN columns, in
+// groups of four kFBN / (kFTN / 4) columns apart
+__host__ __device__ constexpr int fused_row(int i, int ty) {
+  return i * kFRowsT + ty;
+}
+__host__ __device__ constexpr int fused_col(int t, int tx) {
+  return t / 4 * 4 * kFColsT + tx * 4 + t % 4;
+}
+
+__host__ __device__ constexpr int fused_align(int bytes) {
+  return (bytes + 127) / 128 * 128;
+}
+
+// Shared-memory layout (bytes) of one launch: a ring of `nst` stages (raw
+// queries, raw W, the encoded tile, bf16 W widened), the cluster's receive
+// slots aliasing the ring, then 3 kFMaxStages mbarriers.  128 bytes more
+// than `total` are allocated, to align the base for TMA.
+struct FusedLayout {
+  int xs, ws, es, stage, nst, recv, region, total;
+  __host__ __device__ FusedLayout(int k, int S, int sx, int sw) {
+    xs = fused_align(k * kFBM * kFBK * sx);
+    ws = fused_align(kFBK * kFBN * sw);
+    es = fused_align(kFBM * kFEncLd * 4);
+    stage = xs + ws + es + (sw == 4 ? 0 : kFBK * kFBN * 4);
+    const int room = kFMaxSmem - 128 - 3 * kFMaxStages * 8;
+    nst = room / stage < kFMaxStages ? room / stage : kFMaxStages;
+    recv = S > 1 ? S * fused_per(S) * kFTM * kFBN * 4 : 0;
+    region = nst * stage > recv ? nst * stage : recv;
+    total = region + 3 * kFMaxStages * 8;
   }
-  for (int i = 0; i < k; ++i) {
-    const TX* xi = x + static_cast<int64_t>(i) * B * F;
-    const float ci = cj[i];
-    float raw[ENC_PER_T];
-#pragma unroll
-    for (int u = 0; u < ENC_PER_T; ++u) {
-      const int e = tid + u * FTHREADS;
-      const int b = b0 + e / FBK;
-      const int f = f0 + e % FBK;
-      raw[u] = (b < B && f < F)
-                   ? to_f32(xi[static_cast<int64_t>(b) * F + f])
-                   : 0.f;
+};
+
+// The cluster size for `tiles` output tiles, given `capacity[S]`, the
+// clusters of S CTAs the card holds at once (S = 1..kFMaxCluster): the
+// largest S whose clusters all fit in one wave, else 1.  kernels/
+// fused_encode_forward.py:fused_plan is the same rule.
+int fused_cluster_size(long long tiles, const int* capacity) {
+  for (int S = kFMaxCluster; S > 1; --S)
+    if (capacity[S] >= tiles) return S;
+  return 1;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > kFHangCycles) {
+      __trap();
     }
-#pragma unroll
-    for (int u = 0; u < ENC_PER_T; ++u)
-      enc_r[u] = i == 0 ? raw[u] * ci : enc_r[u] + raw[u] * ci;
   }
 }
 
+// One TMA box of a 3-D map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Split arrive / wait on the cluster barrier (all threads of every CTA)
+__device__ __forceinline__ void cluster_arrive() {   // release
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {     // acquire
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Four consecutive elements of shared memory as fp32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Named barrier 1 over the producer warps only
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kFProducers) : "memory");
+}
+
+// What the producer warps need to fill a stage
 template <typename TX, typename TW>
-__global__ void __launch_bounds__(FTHREADS)
-fused_kernel(const TX* __restrict__ x, const float* __restrict__ C,
-             const TW* __restrict__ w, TX* __restrict__ out, int k, int B,
-             int F, int V) {
-  __shared__ float enc_s[FBK][FBM + 1];
-  __shared__ __align__(16) float w_s[FBK][FBN];
-  const int j = blockIdx.z;
-  const int b0 = blockIdx.y * FBM;
-  const int v0 = blockIdx.x * FBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % (FBN / FTN);
-  const int ty = tid / (FBN / FTN);
-  const float* cj = C + static_cast<int64_t>(j) * k;
-  const TW* wj = w + static_cast<int64_t>(j) * F * V;
+struct FusedSrc {
+  const CUtensorMap* xmap;
+  const CUtensorMap* wmap;
+  const TX* x;
+  const TW* wj;
+  int k, B, F, V, b0, v0, j, f_end;
+  int64_t x_n, w_n, w_off;                 // for the checked build
+};
 
-  float acc[FTM][FTN];
-#pragma unroll
-  for (int i = 0; i < FTM; ++i)
-#pragma unroll
-    for (int t = 0; t < FTN; ++t) acc[i][t] = 0.f;
+// Step `s` (F columns from f0) into `stage`: TMA boxes completing on
+// `full`, or (TMA = false) the warp's element loads, zero outside [0, B),
+// [0, V) and [f0, f_end)
+template <typename TX, typename TW, bool TMA>
+__device__ __forceinline__ void fused_fill(uint8_t* stage, const FusedLayout& L,
+                                           const FusedSrc<TX, TW>& a, int f0,
+                                           uint64_t* full, int pt) {
+  if constexpr (TMA) {
+    if (pt == 0) {
+      mbar_expect_tx(full, a.k * kFBM * kFBK * sizeof(TX) +
+                               kFBK * kFBN * sizeof(TW));
+      tma_load3(stage, a.xmap, full, f0, a.b0, 0);
+      tma_load3(stage + L.xs, a.wmap, full, a.v0, f0, a.j);
+    }
+  } else {
+    TX* xs = reinterpret_cast<TX*>(stage);
+    TW* ws = reinterpret_cast<TW*>(stage + L.xs);
+    for (int e = pt; e < a.k * kFBM * kFBK; e += kFProducers) {
+      const int i = e / (kFBM * kFBK), b = e / kFBK % kFBM,
+                f = f0 + e % kFBK;
+      const int64_t src = (static_cast<int64_t>(i) * a.B + a.b0 + b) * a.F + f;
+      const bool ok = a.b0 + b < a.B && f < a.f_end;
+      REPRO_CHECK(!ok || (src >= 0 && src < a.x_n));
+      xs[e] = ok ? a.x[src] : from_f32<TX>(0.f);
+    }
+    for (int e = pt; e < kFBK * kFBN; e += kFProducers) {
+      const int f = f0 + e / kFBN, v = a.v0 + e % kFBN;
+      const int64_t src = static_cast<int64_t>(f) * a.V + v;
+      const bool ok = f < a.f_end && v < a.V;
+      REPRO_CHECK(!ok || (src >= 0 && a.w_off + src < a.w_n));
+      ws[e] = ok ? a.wj[src] : from_f32<TW>(0.f);
+    }
+    producer_sync();
+  }
+}
 
-  float enc_r[ENC_PER_T], w_r[W_PER_T];
-  fused_load(x, cj, wj, k, B, F, V, b0, v0, 0, tid, enc_r, w_r);
-  for (int f0 = 0; f0 < F; f0 += FBK) {
-#pragma unroll
-    for (int u = 0; u < ENC_PER_T; ++u) {
-      const int e = tid + u * FTHREADS;
-      enc_s[e % FBK][e / FBK] = enc_r[u];
+// (the element-wise instance keeps more registers: its loads spill at the
+// TMA instance's bound)
+template <typename TX, typename TW, bool TMA>
+__global__ void __launch_bounds__(kFThreads, TMA ? kFMinBlocks : 2)
+fused_cluster_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     const TX* __restrict__ x, const float* __restrict__ C,
+                     const TW* __restrict__ w, TX* __restrict__ out, int k,
+                     int B, int F, int V, int S) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(128) uint8_t fsm_raw[];
+  __shared__ float cs[kFMaxK];             // C[j, :]
+  uint8_t* fsm = fsm_raw + ((128u - (smem_u32(fsm_raw) & 127u)) & 127u);
+  const FusedLayout L(k, S, sizeof(TX), sizeof(TW));
+  uint64_t* full = reinterpret_cast<uint64_t*>(fsm + L.region);
+  uint64_t* encd = full + kFMaxStages;
+  uint64_t* empty = encd + kFMaxStages;
+  float* recv = reinterpret_cast<float*>(fsm);    // aliases the ring
+  constexpr bool kWideW = !std::is_same<TW, float>::value;
+
+  const int rank = blockIdx.x % S;
+  const int v0 = blockIdx.x / S * kFBN, b0 = blockIdx.y * kFBM;
+  const int j = blockIdx.z, r = gridDim.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // this CTA's slice of the F steps (fused_slices in the wrapper)
+  const int steps = (F + kFBK - 1) / kFBK;
+  const int sb = static_cast<int>(static_cast<int64_t>(rank) * steps / S);
+  const int se =
+      static_cast<int>(static_cast<int64_t>(rank + 1) * steps / S);
+  const int n = se - sb;
+  const int nst = L.nst;
+  if (tid == 0) {
+    for (int s = 0; s < kFMaxStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&encd[s], kFProducerWarps);
+      mbar_init(&empty[s], kFWarps);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < k) {
+    REPRO_CHECK(j < r);
+    cs[tid] = C[static_cast<int64_t>(j) * k + tid];
+  }
+  __syncthreads();
+
+  float acc[kFTM][kFTN];
 #pragma unroll
-    for (int u = 0; u < W_PER_T; ++u) {
-      const int e = tid + u * FTHREADS;
-      w_s[e / FBN][e % FBN] = w_r[u];
-    }
-    __syncthreads();
-    if (f0 + FBK < F)     // next step's loads fly while this step computes
-      fused_load(x, cj, wj, k, B, F, V, b0, v0, f0 + FBK, tid, enc_r, w_r);
+  for (int i = 0; i < kFTM; ++i)
 #pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      float a[FTM];
-#pragma unroll
-      for (int i = 0; i < FTM; ++i) a[i] = enc_s[kk][ty * FTM + i];
-      const float4 bv = *reinterpret_cast<const float4*>(&w_s[kk][tx * FTN]);
-#pragma unroll
-      for (int i = 0; i < FTM; ++i) {
-        acc[i][0] = fmaf(a[i], bv.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i], bv.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i], bv.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i], bv.w, acc[i][3]);
+    for (int t = 0; t < kFTN; ++t) acc[i][t] = 0.f;
+  const int tx = tid % kFColsT, ty = tid / kFColsT;   // FMA threads
+
+  if (warp >= kFWarps) {
+    // producers: fill, encode, refill what the FMA warps released
+    const int pt = tid - kFConsumers;
+    const int64_t w_off = static_cast<int64_t>(j) * F * V;
+    const FusedSrc<TX, TW> a{&xmap, &wmap, x, w + w_off, k, B, F, V, b0, v0,
+                             j, min(se * kFBK, F),
+                             static_cast<int64_t>(k) * B * F,
+                             static_cast<int64_t>(r) * F * V, w_off};
+    for (int s = 0; s < n && s < nst; ++s)
+      fused_fill<TX, TW, TMA>(fsm + s * L.stage, L, a, (sb + s) * kFBK,
+                              &full[s], pt);
+    for (int s = 0; s < n; ++s) {
+      const int q = s % nst;
+      uint8_t* st = fsm + q * L.stage;
+      if constexpr (TMA) mbar_wait(&full[q], (s / nst) & 1);
+      const TX* xs = reinterpret_cast<const TX*>(st);
+      float* enc = reinterpret_cast<float*>(st + L.xs + L.ws);
+      for (int e4 = pt; e4 < kFBM * kFBK / 4; e4 += kFProducers) {
+        float4 e = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int i = 0; i < k; ++i) {
+          REPRO_CHECK(i * kFBM * kFBK + 4 * e4 + 4 <= k * kFBM * kFBK);
+          const float4 v = load4(xs + i * kFBM * kFBK + 4 * e4);
+          const float c = cs[i];
+          e.x = fmaf(v.x, c, e.x);
+          e.y = fmaf(v.y, c, e.y);
+          e.z = fmaf(v.z, c, e.z);
+          e.w = fmaf(v.w, c, e.w);
+        }
+        REPRO_CHECK(e4 / (kFBK / 4) * kFEncLd + e4 % (kFBK / 4) * 4 + 4 <=
+                    kFBM * kFEncLd);
+        *reinterpret_cast<float4*>(enc + e4 / (kFBK / 4) * kFEncLd +
+                                   e4 % (kFBK / 4) * 4) = e;
+      }
+      if constexpr (kWideW) {
+        const TW* ws = reinterpret_cast<const TW*>(st + L.xs);
+        for (int e4 = pt; e4 < kFBK * kFBN / 4; e4 += kFProducers) {
+          REPRO_CHECK(4 * e4 + 4 <= kFBK * kFBN);
+          reinterpret_cast<float4*>(st + L.xs + L.ws + L.es)[e4] =
+              load4(ws + 4 * e4);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&encd[q]);
+      // refill the stage of step s - 1 once the FMA warps released it
+      const int p = s - 1;
+      if (p >= 0 && p + nst < n && (!TMA || pt == 0)) {
+        mbar_wait(&empty[p % nst], (p / nst) & 1);
+        fused_fill<TX, TW, TMA>(fsm + (p % nst) * L.stage, L, a,
+                                (sb + p + nst) * kFBK, &full[p % nst], pt);
       }
     }
-    __syncthreads();
+  } else {
+    // FMA warps: 8 x 4 outputs per thread, four steps of depth at a time
+    for (int s = 0; s < n; ++s) {
+      const int q = s % nst;
+      const uint8_t* st = fsm + q * L.stage;
+      mbar_wait(&encd[q], (s / nst) & 1);
+      const float* enc = reinterpret_cast<const float*>(st + L.xs + L.ws);
+      const float* wt = reinterpret_cast<const float*>(
+          kWideW ? st + L.xs + L.ws + L.es : st + L.xs);
+#pragma unroll
+      for (int kq = 0; kq < kFBK; kq += 4) {
+        float a[kFTM][4];
+#pragma unroll
+        for (int i = 0; i < kFTM; ++i) {
+          REPRO_CHECK(fused_row(i, ty) * kFEncLd + kq + 4 <= kFBM * kFEncLd);
+          const float4 v = load4(enc + fused_row(i, ty) * kFEncLd + kq);
+          a[i][0] = v.x, a[i][1] = v.y, a[i][2] = v.z, a[i][3] = v.w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float bv[kFTN];
+#pragma unroll
+          for (int t = 0; t < kFTN; t += 4) {
+            REPRO_CHECK((kq + u) * kFBN + fused_col(t, tx) + 4 <=
+                        kFBK * kFBN);
+            const float4 v = load4(wt + (kq + u) * kFBN + fused_col(t, tx));
+            bv[t] = v.x, bv[t + 1] = v.y, bv[t + 2] = v.z, bv[t + 3] = v.w;
+          }
+#pragma unroll
+          for (int i = 0; i < kFTM; ++i)
+#pragma unroll
+            for (int t = 0; t < kFTN; ++t)
+              acc[i][t] = fmaf(a[i][u], bv[t], acc[i][t]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[q]);
+    }
   }
 
+  const bool producer = warp >= kFWarps;
+  if (S > 1) {
+    // every CTA has left its loop, so every ring is free: push this CTA's
+    // partial of thread row ty into its owner's slot `rank`, then sum the
+    // S slots of the rows this CTA owns
+    cg::cluster_group cluster = cg::this_cluster();
+    REPRO_CHECK(static_cast<int>(cluster.num_blocks()) == S &&
+                static_cast<int>(cluster.block_rank()) == rank);
+    const int per = fused_per(S);
+    const int owner = ty / per, slot = ty - owner * per;
+    cluster_arrive();
+    cluster_wait();
+    if (!producer) {
+      REPRO_CHECK(owner < S && slot < per);
+      float* dst = cluster.map_shared_rank(recv, owner);
 #pragma unroll
-  for (int i = 0; i < FTM; ++i) {
-    const int b = b0 + ty * FTM + i;
+      for (int i = 0; i < kFTM; ++i)
+#pragma unroll
+        for (int t = 0; t < kFTN; t += 4) {
+          const int o = ((rank * per + slot) * kFTM + i) * kFBN +
+                        fused_col(t, tx);
+          REPRO_CHECK(o + 4 <= L.recv / 4);
+          *reinterpret_cast<float4*>(dst + o) = make_float4(
+              acc[i][t], acc[i][t + 1], acc[i][t + 2], acc[i][t + 3]);
+        }
+    }
+    cluster_arrive();                      // every partial landed
+    cluster_wait();
+    if (producer || owner != rank) return;
+#pragma unroll
+    for (int i = 0; i < kFTM; ++i)
+#pragma unroll
+      for (int t = 0; t < kFTN; t += 4) {
+        float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int c = 0; c < S; ++c) {
+          const int o = ((c * per + slot) * kFTM + i) * kFBN +
+                        fused_col(t, tx);
+          REPRO_CHECK(o + 4 <= L.recv / 4);
+          const float4 p = load4(recv + o);
+          s4.x += p.x;
+          s4.y += p.y;
+          s4.z += p.z;
+          s4.w += p.w;
+        }
+        acc[i][t] = s4.x, acc[i][t + 1] = s4.y;
+        acc[i][t + 2] = s4.z, acc[i][t + 3] = s4.w;
+      }
+  } else if (producer) {
+    return;
+  }
+
+  [[maybe_unused]] const int64_t out_n = static_cast<int64_t>(r) * B * V;
+#pragma unroll
+  for (int i = 0; i < kFTM; ++i) {
+    const int b = b0 + fused_row(i, ty);
     if (b >= B) continue;
 #pragma unroll
-    for (int t = 0; t < FTN; ++t) {
-      const int v = v0 + tx * FTN + t;
-      if (v < V)
-        out[(static_cast<int64_t>(j) * B + b) * V + v] =
-            from_f32<TX>(acc[i][t]);
+    for (int t = 0; t < kFTN; t += 4) {
+      const int v = v0 + fused_col(t, tx);
+      const int64_t o = (static_cast<int64_t>(j) * B + b) * V + v;
+      if (TMA && v + 4 <= V) {             // V % 4 == 0, out 16-byte aligned
+        REPRO_CHECK(o >= 0 && o + 4 <= out_n);
+        if constexpr (std::is_same<TX, float>::value) {
+          *reinterpret_cast<float4*>(out + o) = make_float4(
+              acc[i][t], acc[i][t + 1], acc[i][t + 2], acc[i][t + 3]);
+        } else {
+          __nv_bfloat162 h[2] = {
+              __floats2bfloat162_rn(acc[i][t], acc[i][t + 1]),
+              __floats2bfloat162_rn(acc[i][t + 2], acc[i][t + 3])};
+          *reinterpret_cast<uint2*>(out + o) = *reinterpret_cast<uint2*>(h);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (v + u < V) {
+            REPRO_CHECK(o + u >= 0 && o + u < out_n);
+            out[o + u] = from_f32<TX>(acc[i][t + u]);
+          }
+        }
+      }
     }
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// Dynamic shared memory up to kFMaxSmem for one instance, set once per
+// device
+template <typename TX, typename TW, bool TMA>
+cudaError_t fused_prepare() {
+  static std::atomic<int> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && ready[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(fused_cluster_kernel<TX, TW, TMA>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kFMaxSmem);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    ready[dev].store(1, std::memory_order_release);
+  return err;
+}
+
+// Output tiles (= clusters) of an [r, B, V] output
+long long fused_tiles(int r, int B, int V) {
+  return static_cast<long long>(r) * ((B + kFBM - 1) / kFBM) *
+         ((V + kFBN - 1) / kFBN);
+}
+
+// The launch configuration of an (S * V tiles, B tiles, r) grid, clusters of
+// S along x
+struct FusedConfig {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  FusedConfig(int k, int S, int B, int V, int r, int sx, int sw,
+              cudaStream_t st) {
+    cfg.gridDim = dim3(S * ((V + kFBN - 1) / kFBN), (B + kFBM - 1) / kFBM, r);
+    cfg.blockDim = dim3(kFThreads);
+    cfg.dynamicSmemBytes = FusedLayout(k, S, sx, sw).total + 128;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// capacity[S], S = 1..kFMaxCluster: the clusters of S CTAs of one instance
+// at k queries that the current device holds at once
+// (cudaOccupancyMaxActiveClusters), read once per (device, k)
+template <typename TX, typename TW, bool TMA>
+cudaError_t fused_capacity(int k, int* capacity) {
+  static std::atomic<int> cached[kMaxDevices][kFMaxK + 1][kFMaxCluster + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  capacity[0] = 0;
+  for (int S = 1; S <= kFMaxCluster; ++S) {
+    int n = dev < kMaxDevices ? cached[dev][k][S].load() : 0;
+    if (n == 0) {
+      if (FusedLayout(k, S, sizeof(TX), sizeof(TW)).nst < 2)
+        return cudaErrorInvalidValue;
+      err = fused_prepare<TX, TW, TMA>();
+      if (err != cudaSuccess) return err;
+      FusedConfig fc(k, S, 1, 1, 1, sizeof(TX), sizeof(TW), nullptr);
+      err = cudaOccupancyMaxActiveClusters(
+          &n, fused_cluster_kernel<TX, TW, TMA>, &fc.cfg);
+      if (err != cudaSuccess) return err;
+      if (dev < kMaxDevices) cached[dev][k][S].store(n > 0 ? n : -1);
+    }
+    capacity[S] = n > 0 ? n : 0;
+  }
+  return cudaSuccess;
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query (no link against libcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// Negative return codes of the entry points: the tensor-map encode failed
+constexpr int kErrNoEncode = -1;        // no cuTensorMapEncodeTiled
+constexpr int kErrEncode = -1000;       // minus the CUresult of the encode
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over a contiguous [d2, d1, d0] tensor (d0 innermost) of `esize`
+// bytes per element, boxes of (b0, b1, b2); reads past an edge give zeros
+CUresult encode_map3(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                     int esize, int d0, int d1, int d2, int b0, int b1,
+                     int b2) {
+  const cuuint64_t dim[3] = {static_cast<cuuint64_t>(d0),
+                             static_cast<cuuint64_t>(d1),
+                             static_cast<cuuint64_t>(d2)};
+  const cuuint64_t stride[2] = {dim[0] * esize, dim[0] * dim[1] * esize};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0),
+                             static_cast<cuuint32_t>(b1),
+                             static_cast<cuuint32_t>(b2)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map,
+             esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             3, const_cast<void*>(ptr), dim, stride, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <typename TX, typename TW, bool TMA>
+int launch_fused_inst(const void* x, const void* C, const void* w, void* out,
+                      int k, int r, int B, int F, int V, cudaStream_t s) {
+  CUtensorMap xmap, wmap;
+  memset(&xmap, 0, sizeof xmap);
+  memset(&wmap, 0, sizeof wmap);
+  if (TMA) {
+    const EncodeTiled enc = encode_tiled();
+    if (enc == nullptr) return kErrNoEncode;
+    CUresult res = encode_map3(enc, &xmap, x, sizeof(TX), F, B, k, kFBK,
+                               kFBM, k);
+    if (res == CUDA_SUCCESS)
+      res = encode_map3(enc, &wmap, w, sizeof(TW), V, F, r, kFBN, kFBK, 1);
+    if (res != CUDA_SUCCESS) return kErrEncode - static_cast<int>(res);
+  }
+  cudaError_t err = fused_prepare<TX, TW, TMA>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int capacity[kFMaxCluster + 1];
+  err = fused_capacity<TX, TW, TMA>(k, capacity);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int S = fused_cluster_size(fused_tiles(r, B, V), capacity);
+  FusedConfig fc(k, S, B, V, r, sizeof(TX), sizeof(TW), s);
+  const TX* xp = static_cast<const TX*>(x);
+  const float* cp = static_cast<const float*>(C);
+  const TW* wp = static_cast<const TW*>(w);
+  TX* op = static_cast<TX*>(out);
+  void* args[] = {&xmap, &wmap, &xp, &cp, &wp, &op, &k, &B, &F, &V, &S};
+  err = cudaLaunchKernelExC(
+      &fc.cfg, reinterpret_cast<const void*>(fused_cluster_kernel<TX, TW, TMA>),
+      args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The TMA instance where every row of X, W and out starts 16-byte aligned
+// (TMA's stride rule) and there is something to load
 template <typename TX, typename TW>
-void launch_fused(const void* x, const void* C, const void* w, void* out,
-                  int k, int r, int B, int F, int V, cudaStream_t s) {
-  dim3 grid((V + FBN - 1) / FBN, (B + FBM - 1) / FBM, r);
-  fused_kernel<TX, TW><<<grid, FTHREADS, 0, s>>>(
-      static_cast<const TX*>(x), static_cast<const float*>(C),
-      static_cast<const TW*>(w), static_cast<TX*>(out), k, B, F, V);
+int launch_fused(const void* x, const void* C, const void* w, void* out,
+                 int k, int r, int B, int F, int V, cudaStream_t s) {
+  const bool tma = F > 0 &&
+                   static_cast<int64_t>(F) * sizeof(TX) % 16 == 0 &&
+                   static_cast<int64_t>(V) * sizeof(TW) % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(w) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (tma)
+    return launch_fused_inst<TX, TW, true>(x, C, w, out, k, r, B, F, V, s);
+  return launch_fused_inst<TX, TW, false>(x, C, w, out, k, r, B, F, V, s);
 }
 
 // ------------------------------------------------------- learned project ---
@@ -504,6 +1032,9 @@ void launch_project(const void* h, const void* w, void* out, int H, int r,
     launch_project_vec<T, kProjRows>(h, w, out, H, r, n, s);
 }
 
+// the launch probe of repro_empty_launch
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -578,26 +1109,50 @@ int repro_multigroup_decode(const void* p, const void* o, const void* cmat,
   return static_cast<int>(cudaGetLastError());
 }
 
-// queries [k, B, F] (dtype_x); coeffs [r, k] fp32; weights [r, F, V]
-// (dtype_w); out [r, B, V] in dtype_x
+// queries [k, B, F] (dtype_x), 1 <= k <= 8; coeffs [r, k] fp32; weights
+// [r, F, V] (dtype_w); out [r, B, V] in dtype_x.  One launch of
+// fused_cluster_kernel, clusters of fused_cluster_size CTAs.
 int repro_fused_encode_forward(const void* x, const void* C, const void* w,
                                void* out, int k, int r, int B, int F, int V,
                                int dtype_x, int dtype_w, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || k > kFMaxK || F < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (r <= 0 || B <= 0 || V <= 0) return static_cast<int>(cudaGetLastError());
-  if (dtype_x == 0 && dtype_w == 0) {
-    launch_fused<float, float>(x, C, w, out, k, r, B, F, V, s);
-  } else if (dtype_x == 0 && dtype_w == 1) {
-    launch_fused<float, __nv_bfloat16>(x, C, w, out, k, r, B, F, V, s);
-  } else if (dtype_x == 1 && dtype_w == 0) {
-    launch_fused<__nv_bfloat16, float>(x, C, w, out, k, r, B, F, V, s);
-  } else if (dtype_x == 1 && dtype_w == 1) {
-    launch_fused<__nv_bfloat16, __nv_bfloat16>(x, C, w, out, k, r, B, F, V,
-                                               s);
-  } else {
-    return bad_dtype();
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype_x == 0 && dtype_w == 0)
+    return launch_fused<float, float>(x, C, w, out, k, r, B, F, V, s);
+  if (dtype_x == 0 && dtype_w == 1)
+    return launch_fused<float, __nv_bfloat16>(x, C, w, out, k, r, B, F, V,
+                                              s);
+  if (dtype_x == 1 && dtype_w == 0)
+    return launch_fused<__nv_bfloat16, float>(x, C, w, out, k, r, B, F, V,
+                                              s);
+  if (dtype_x == 1 && dtype_w == 1)
+    return launch_fused<__nv_bfloat16, __nv_bfloat16>(x, C, w, out, k, r, B,
+                                                      F, V, s);
+  return bad_dtype();
+}
+
+// capacity[0..8]: capacity[S] clusters of S CTAs of B2's (dtype_x,
+// dtype_w, tma) instance at k queries the current device holds at once;
+// *size: the cluster size B2 launches an [r, B, V] output with
+// (kernels/fused_encode_forward.py:fused_plan must agree)
+int repro_fused_plan(int k, int r, int B, int V, int dtype_x, int dtype_w,
+                     int tma, int* capacity, int* size) {
+  if (k < 1 || k > kFMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+#define REPRO_FUSED_CAPACITY(TX, TW)                                       \
+  err = tma ? fused_capacity<TX, TW, true>(k, capacity)                    \
+            : fused_capacity<TX, TW, false>(k, capacity)
+  if (dtype_x == 0 && dtype_w == 0) REPRO_FUSED_CAPACITY(float, float);
+  if (dtype_x == 0 && dtype_w == 1) REPRO_FUSED_CAPACITY(float, __nv_bfloat16);
+  if (dtype_x == 1 && dtype_w == 0) REPRO_FUSED_CAPACITY(__nv_bfloat16, float);
+  if (dtype_x == 1 && dtype_w == 1)
+    REPRO_FUSED_CAPACITY(__nv_bfloat16, __nv_bfloat16);
+#undef REPRO_FUSED_CAPACITY
+  if (err == cudaSuccess)
+    *size = fused_cluster_size(fused_tiles(r, B, V), capacity);
+  return static_cast<int>(err);
 }
 
 // h [H, n] (dtype); w [H, r] fp32, H * 8 <= 12288 where r > 4 (H * 4 where
@@ -614,6 +1169,14 @@ int repro_learned_project(const void* h, const void* w, void* out, int H,
   } else {
     return bad_dtype();
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A measurement probe, not a kernel of the port: one empty launch through
+// the same ctypes path as the kernels, so a measurement can state what a
+// launch alone costs on the device
+int repro_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,6 +7,12 @@ of the sources and flags, so an edited source is rebuilt and a stale library
 is never loaded.  The build runs once per process under a lock: the serving
 runtime's worker threads may all reach their first kernel together.
 
+``library(checked=True)`` builds the same sources with ``-DREPRO_CHECKED
+-lineinfo`` into a second, separately hashed library: there ``REPRO_CHECK``
+guards in the kernels trap on an index outside its tensor or buffer.  It is
+for checks only (``chip_smoke.py`` runs B2's sweep through it); every
+wrapper launches from the unchecked library.
+
 Nothing here runs at import: the CPU tests import every module, and this
 machine-independent code must not need ``nvcc`` or a card until a kernel is
 actually launched on a CUDA tensor.
@@ -30,6 +36,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas=-v")
 LINK_FLAGS = (*ARCH, "-shared")
+CHECKED_FLAGS = ("-DREPRO_CHECKED", "-lineinfo")
 
 # ctypes signatures of the C entry points (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints and cut them)
@@ -47,12 +54,14 @@ _SIGNATURES = {
     "repro_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _F, _I, _P],
     "repro_decode_cluster_capacity": [_I, _I, _I, _P],
+    "repro_fused_plan": [_I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "repro_empty_launch": [_P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}                # checked -> loaded library
 build_log = ""            # nvcc's output (ptxas register/spill report)
 
 
@@ -93,7 +102,7 @@ def _nvcc():
         "toolkit")
 
 
-def _compile(sources, out):
+def _compile(sources, out, flags):
     """One nvcc per source into an object, all started together, then one
     link; returns the concatenated compiler output."""
     nvcc = _nvcc()
@@ -103,7 +112,7 @@ def _compile(sources, out):
     for src in sources:
         obj = tmp / (src.stem + ".o")
         objs.append(obj)
-        cmd = [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -128,23 +137,28 @@ def _compile(sources, out):
     return "".join(logs)
 
 
-def library():
-    """The loaded kernel library, built on first call (once per process,
-    under a lock).  Raises if the build or the load fails."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
+def library(checked=False):
+    """The loaded kernel library, built on first call (once per process and
+    kind, under a lock); ``checked=True`` is the bounds-checked build.
+    Raises if the build or the load fails."""
+    global build_log
+    if checked in _libs:
+        return _libs[checked]
     with _lock:
-        if _lib is not None:
-            return _lib
+        if checked in _libs:
+            return _libs[checked]
+        flags = COMPILE_FLAGS + (CHECKED_FLAGS if checked else ())
         sources = sorted(CSRC.glob("*.cu"))
-        h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+        h = hashlib.sha256(" ".join(flags + LINK_FLAGS).encode())
         for src in sources:
             h.update(src.read_bytes())
-        out = BUILD_DIR / f"libparity_kernels_{h.hexdigest()[:12]}.so"
+        kind = "_checked" if checked else ""
+        out = BUILD_DIR / f"libparity_kernels{kind}_{h.hexdigest()[:12]}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            build_log = _compile(sources, out)
+            log = _compile(sources, out, flags)
+            if not checked:
+                build_log = log
         lib = ctypes.CDLL(str(out))
         for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -152,8 +166,8 @@ def library():
             fn.restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return _lib
+        _libs[checked] = lib
+        return lib
 
 
 def dtype_code(dtype):
@@ -205,5 +219,5 @@ def device_guard(device):
 def check(rc, name):
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if rc != 0:
-        msg = _lib.repro_error_string(rc).decode()
+        msg = library().repro_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")

@@ -9,6 +9,8 @@ wrappers (``counters()``).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -84,7 +86,7 @@ def fused_encode_forward_op(queries, coeffs, weights):
     F); coeffs [r, k]; weights [r, F, V] — one first-layer matrix per parity
     row — returns [r, B, V]."""
     k, B = queries.shape[:2]
-    flat = queries.reshape(k, B, -1)
+    flat = queries.reshape(k, B, math.prod(queries.shape[2:]))   # F may be 0
     C = _f32(coeffs, flat.device)
     if _on_card(flat):
         return _fused_ef.fused_encode_forward(

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.fused_encode_forward import fused_slices
+
 
 def parity_encode_ref(queries, coeffs):
     """queries [k, B, F]; coeffs [k] -> parity [B, F] (fp32 accumulate)."""
@@ -30,6 +32,20 @@ def fused_encode_forward_ref(queries, coeffs, weights):
     each row's first forward matmul (fp32 accumulate throughout)."""
     enc = torch.einsum("rk,kbf->rbf", coeffs.float(), queries.float())
     out = torch.einsum("rbf,rfv->rbv", enc, weights.float())
+    return out.to(queries.dtype)
+
+
+def fused_encode_forward_split_ref(queries, coeffs, weights, S):
+    """``fused_encode_forward_ref`` in B2's summation order on the card: F
+    cut into the S slices of a cluster (``fused_slices``), one fp32 partial
+    product per slice, the partials summed in rank order."""
+    enc = torch.einsum("rk,kbf->rbf", coeffs.float(), queries.float())
+    w = weights.float()
+    out = torch.zeros((w.shape[0], enc.shape[1], w.shape[2]),
+                      device=enc.device)
+    for f0, f1 in fused_slices(queries.shape[2], S):
+        out = out + torch.einsum("rbf,rfv->rbv", enc[..., f0:f1],
+                                 w[:, f0:f1])
     return out.to(queries.dtype)
 
 

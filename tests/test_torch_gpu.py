@@ -110,18 +110,80 @@ def test_multigroup_decode_kernel(cuda, G, k, B, V, dt):
            ref.multigroup_decode_ref(po, outs, cmat), _tol(dt) * k, 2e-2)
 
 
-@pytest.mark.parametrize("dt", DTYPES)
+FUSED_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.float32),
+                (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dtx,dtw", FUSED_DTYPES)
 @pytest.mark.parametrize("k,r,B,F,V", [(2, 1, 1000, 784, 200),
                                        (4, 2, 1, 129, 64),
-                                       (2, 3, 8, 1024, 257)])
-def test_fused_encode_forward_kernel(cuda, k, r, B, F, V, dt):
-    q = torch.randn((k, B, F), generator=cuda, device="cuda").to(dt)
+                                       (3, 1, 5, 300, 130),
+                                       (2, 3, 8, 1024, 257),
+                                       (2, 1, 4, 3, 64),      # F < S
+                                       (2, 1, 4, 0, 64)])     # F = 0
+def test_fused_encode_forward_kernel(cuda, k, r, B, F, V, dtx, dtw):
+    """B2 at every edge (ragged F, B and V; unaligned rows; F smaller than
+    the cluster; no F at all) in the four dtype pairs, one launch per call;
+    the tolerance follows the queries' dtype, the output's."""
+    q = torch.randn((k, B, F), generator=cuda, device="cuda").to(dtx)
     C = torch.randn((r, k), generator=cuda, device="cuda")
-    W = torch.randn((r, F, V), generator=cuda, device="cuda").to(dt)
-    mul = math.sqrt(F * k)
-    _close(ops.fused_encode_forward_op(q, C, W),
-           ref.fused_encode_forward_ref(q, C, W), _tol(dt) * mul,
-           _tol(dt) * mul)
+    W = torch.randn((r, F, V), generator=cuda, device="cuda").to(dtw)
+    mul = math.sqrt(max(F, 1) * k)
+    cnt = ops.counters()["fused_encode_forward"]
+    before = cnt.value
+    got = ops.fused_encode_forward_op(q, C, W)
+    torch.cuda.synchronize()
+    assert cnt.value == before + 1
+    assert got.dtype == dtx and tuple(got.shape) == (r, B, V)
+    _close(got, ref.fused_encode_forward_ref(q, C, W), _tol(dtx) * mul,
+           _tol(dtx) * mul)
+
+
+@pytest.mark.parametrize("B,V", [(200, 200), (3000, 64), (960, 256),
+                                 (1000, 200), (1280, 256), (1600, 256),
+                                 (2400, 256), (4000, 200)])
+def test_fused_encode_forward_cluster_sizes(cuda, B, V):
+    """Shapes whose planned cluster sizes run from 8 down to 1 on an H100:
+    the Python plan, fed the card's cluster capacities, picks the kernel's
+    own cluster size (``repro_fused_plan``), and the output matches the
+    plain version and its model of the kernel's summation order."""
+    from repro_torch.kernels import fused_encode_forward as kf
+    F = 784
+    q = torch.randn((2, B, F), generator=cuda, device="cuda")
+    C = torch.randn((1, 2), generator=cuda, device="cuda")
+    W = torch.randn((1, F, V), generator=cuda, device="cuda")
+    S, clusters = kf.card_plan(q, W)
+    assert kf.fused_plan(2, 1, B, F, V, clusters)[2] == S
+    got = kf.fused_encode_forward(q, C, W)
+    tol = 2e-5 * math.sqrt(F * 2)
+    _close(got, ref.fused_encode_forward_ref(q, C, W), tol, tol)
+    _close(got, ref.fused_encode_forward_split_ref(q, C, W, S), tol, tol)
+
+
+def test_fused_encode_forward_is_one_device_operation(cuda):
+    """20 wrapper calls at the A_d shape: the counter rises by 20 and the
+    profiler sees 20 launches of fused_cluster_kernel and no other device
+    operation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import fused_encode_forward as kf
+    q = torch.randn((2, 1000, 784), generator=cuda, device="cuda")
+    C = torch.ones((1, 2), device="cuda")
+    W = torch.randn((1, 784, 200), generator=cuda, device="cuda")
+    kf.fused_encode_forward(q, C, W)
+    torch.cuda.synchronize()
+    before = kf.launches.value
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            kf.fused_encode_forward(q, C, W)
+        torch.cuda.synchronize()
+    seen = {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+    assert kf.launches.value == before + 20
+    assert len(seen) == 1 and sum(seen.values()) == 20, seen
+    assert "fused_cluster_kernel" in next(iter(seen))
 
 
 @pytest.mark.parametrize("dt", DTYPES)

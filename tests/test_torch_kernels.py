@@ -21,6 +21,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.multigroup_decode import multigroup_lstsq as j_lstsq
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused_encode_forward import (BK, BM, BN, WARPS,
+                                                     fused_plan, fused_slices)
 from repro_torch.kernels.multigroup_decode import multigroup_lstsq
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -155,6 +157,79 @@ def test_fused_encode_forward_trailing_feature_shape():
     jw, tw = _both(rng.normal(size=(1, 48, 10)).astype(np.float32))
     _close(ops.fused_encode_forward_op(tq, torch.tensor(C), tw),
            jops.fused_encode_forward_op(jq, jnp.asarray(C), jw), 2e-5 * 16)
+
+
+def test_fused_encode_forward_no_features():
+    """F = 0: every output is an empty sum."""
+    got = ops.fused_encode_forward_op(torch.ones(2, 3, 0),
+                                      torch.ones(1, 2), torch.ones(1, 0, 5))
+    assert torch.equal(got, torch.zeros(1, 3, 5))
+
+
+@pytest.mark.parametrize("S", range(1, 9))
+@pytest.mark.parametrize("F", [1, 129, 300, 784, 1000])
+def test_fused_slices_cover_f_once(F, S):
+    """B2's cluster of S CTAs takes every F index exactly once, each rank's
+    slice starting on a stage boundary (ranks beyond F's steps empty)."""
+    slices = fused_slices(F, S)
+    assert len(slices) == S
+    seen = np.zeros(F, int)
+    for f0, f1 in slices:
+        assert 0 <= f0 <= f1 <= F and (f0 == f1 or f0 % BK == 0)
+        seen[f0:f1] += 1
+    assert (seen == 1).all()
+    assert [a for a, _ in slices[1:]] == [b for _, b in slices[:-1]]
+
+
+# clusters of S CTAs an H100 80GB HBM3 holds at once for B2's fp32 TMA
+# instance at k = 2 (cudaOccupancyMaxActiveClusters, as chip_smoke.py
+# prints them)
+H100_CLUSTERS = {1: 396, 2: 198, 3: 124, 4: 92, 5: 69, 6: 62, 7: 47, 8: 45}
+
+
+def test_fused_plan_fills_the_card():
+    """At the A_d shape the launch puts at least 8 warps on each of 132 SMs
+    with a portable cluster, in one wave, and its grid is whole clusters of
+    output tiles."""
+    bm, bn, S, grid = fused_plan(2, 1, 1000, 784, 200, H100_CLUSTERS)
+    assert 1 <= S <= 8
+    assert grid[0] * grid[1] * grid[2] * WARPS >= 8 * 132
+    assert grid[0] * grid[1] * grid[2] <= S * H100_CLUSTERS[S]
+    assert grid == (S * -(-200 // bn), -(-1000 // bm), 1)
+
+
+@pytest.mark.parametrize("B,V,S", [(200, 200, 8), (3000, 64, 7),
+                                   (960, 256, 6), (1000, 200, 5),
+                                   (1280, 256, 4), (1600, 256, 3),
+                                   (2400, 256, 2), (4000, 200, 1),
+                                   (100000, 200, 1)])
+def test_fused_plan_one_wave(B, V, S):
+    """The cluster size is the largest whose clusters all fit at once (one
+    wave), and 1 where none does."""
+    got = fused_plan(2, 1, B, 784, V, H100_CLUSTERS)[2]
+    assert got == S
+    tiles = -(-B // BM) * -(-V // BN)
+    assert S == 1 or tiles <= H100_CLUSTERS[S]
+    assert S == 8 or tiles > H100_CLUSTERS[S + 1]
+
+
+@pytest.mark.parametrize("S", [3, 7, 8])
+@pytest.mark.parametrize("k,r,B,F,V,dt", [
+    (2, 1, 4, 512, 128, "f32"), (3, 1, 5, 300, 130, "f32"),
+    (2, 3, 8, 1024, 257, "f32"), (4, 2, 1, 129, 64, "f32"),
+    (4, 2, 8, 1000, 100, "bf16"),
+])
+def test_fused_split_ref_matches_reference(k, r, B, F, V, dt, S):
+    """The plain model of B2's summation order (per-slice partials summed in
+    rank order) against the JAX package's op."""
+    rng = np.random.default_rng(k * 97 + r * 13 + F)
+    jq, tq = _both(rng.normal(size=(k, B, F)).astype(np.float32), dt)
+    C = rng.normal(size=(r, k)).astype(np.float32)
+    jw, tw = _both(rng.normal(size=(r, F, V)).astype(np.float32), dt)
+    got = ref.fused_encode_forward_split_ref(tq, torch.tensor(C), tw, S)
+    assert tuple(got.shape) == (r, B, V) and got.dtype == tq.dtype
+    _close(got, jops.fused_encode_forward_op(jq, jnp.asarray(C), jw),
+           _tol(dt) * np.sqrt(F * k))
 
 
 @pytest.mark.parametrize("H,r,B,F,dt", [
