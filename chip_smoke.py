@@ -36,11 +36,25 @@ Phases, in order; any failure exits non-zero:
                straggling member; tokens held against an uncoded greedy loop,
                the kernel path's logits against the "torch" backend's, every
                B7 and B8 launch held to its tensor-core route, and the
-               measured prefill and decode step beside the H100 roofline.
+               measured prefill and decode step beside the H100 roofline;
+9. train     — LM parity training at the same width: the block scan's
+               custom VJP against autograd through naive attention (fp32,
+               bf16), one reduced parity step's gradients on the card
+               against the CPU's, a parity model distilled from phase 8's
+               model (``make_parity_train_step``, remat, teacher forwards
+               through B7, the first batch's teacher logits against the
+               torch backend's), remat's gradients against no remat's,
+               three joint learned-encoder steps, phase 8's straggler serve
+               with the trained parity model, and ``launch/serve`` at
+               reduced size.
 
-The launch counters are zeroed before each of the three paths (phases 3-4, the
+``python3 chip_smoke.py --distil-lrs 1e-4,1e-3`` runs phase 9's
+distillation alone at each learning rate and prints no result line.
+
+The launch counters are zeroed before each of the four paths (phases 3-4, the
 coded MLP serving path; phases 5-7, the scheme registry's path; phase 8, coded
-LM serving) and read after it; every kernel of a path must have run on it.
+LM serving; phase 9, LM parity training and serving the trained model) and
+read after it; every kernel of a path must have run on it.
 Launches made only to compare a kernel path with its plain twin are not
 counted.  The last two lines of
 standard output are a ``{"kernels": [...]}`` JSON object and the
@@ -84,7 +98,9 @@ from repro_torch.kernels import learned_encoder as k_proj  # noqa: E402
 from repro_torch.kernels import multigroup_decode as k_mg  # noqa: E402
 from repro_torch.kernels import parity_decode as k_dec  # noqa: E402
 from repro_torch.kernels import parity_encode as k_enc  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.roofline import decode_token_cost  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.cnn import build  # noqa: E402
 from repro_torch.serving import runtime  # noqa: E402
@@ -97,6 +113,9 @@ from repro_torch.serving.scenarios import (  # noqa: E402
 from repro_torch.training.loss import softmax_xent  # noqa: E402
 from repro_torch.training.optim import (AdamConfig, adam_init,  # noqa: E402
                                         adam_update)
+from repro_torch.training.train_lib import (  # noqa: E402
+    grad_cfg, make_joint_parity_train_step, make_parity_train_step,
+    parity_loss_fn, value_and_grad)
 
 DEV = "cuda"
 IMG = (28, 28, 1)                 # MNIST shape of the paper's MLP runs
@@ -350,13 +369,19 @@ def sweep_kernels():
             n += 1
     # B7 / B8: the reference's sweep cases (tests/test_kernels.py) in both
     # dtypes, plus ragged edges, windows and one-token prompts (B7), and
-    # per-row pos, a pos past the cache and rep up to 16 (B8)
+    # per-row pos, a pos past the cache and rep up to 16 (B8).  B7 also at
+    # each shape its paths give it: the longest LM prompt (910, a ragged
+    # last key tile), phase 9's teacher forwards (1024 tokens, eight full
+    # tiles) and launch/serve's reduced qwen2-0.5b (fp32 teacher batch of 4
+    # and single queries, 32 tokens)
     for B, Sq, Sk, H, KV, hd, causal, window in [
             (2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 4, 4, 64, True, 64),
             (2, 100, 100, 2, 1, 32, False, 0), (1, 128, 128, 8, 2, 128, True, 0),
             (3, 33, 47, 6, 3, 128, False, 16), (2, 70, 70, 4, 2, 32, True, 5),
             (1, 1, 1, 14, 2, 64, True, 0), (2, 129, 129, 14, 2, 128, True, 0),
-            (1, 910, 910, 14, 2, 64, True, 0)]:
+            (1, 910, 910, 14, 2, 64, True, 0),
+            (1, 1024, 1024, 14, 2, 64, True, 0),
+            (4, 32, 32, 4, 2, 64, True, 0), (1, 32, 32, 4, 2, 64, True, 0)]:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(gen, (B, Sq, H, hd), dt)
             k = randn(gen, (B, Sk, KV, hd), dt)
@@ -1206,9 +1231,11 @@ def lm_teacher_forced(cfg, params, prompt, cont):
     return err, float(out["torch"].abs().max())
 
 
-def lm_serve(cfg, params, prompts, straggle_ms, delay_fn=None):
+def lm_serve(cfg, params, prompts, straggle_ms, delay_fn=None,
+             parity_params=None):
     spec = GenerationSpec(
-        cfg=cfg, params=params, k=K, r=1, scheme="sum",
+        cfg=cfg, params=params, parity_params=parity_params, k=K, r=1,
+        scheme="sum",
         batching=BatchingPolicy(max_size=LM_SLOTS), max_seq_len=LM_SEQ,
         max_new_tokens=LM_NEW, straggle_ms=straggle_ms, delay_fn=delay_fn,
         device=DEV)
@@ -1285,6 +1312,32 @@ def device_profile(fn):
             busy += ev.self_device_time_total / 1e6
             n += ev.count
     return wall, busy, n
+
+
+def check_straggler_serve(label, futs, stats, loops):
+    """Member 0 late on every job: its streams rebuilt, member 1's equal to
+    the uncoded loop (up to bf16 near-ties).  Returns the share of member
+    0's tokens that match the loop's."""
+    # slots fill member 0 first: rids 0-3 live on member 0, 4-7 on member 1
+    member1 = [f for f in futs if f.rid >= LM_SLOTS]
+    member0 = [f for f in futs if f.rid < LM_SLOTS]
+    if not stats.reconstructed_steps > 0 or any(
+            len(f.result()) != LM_NEW for f in futs):
+        raise AssertionError(f"lm {label} run: {stats}")
+    if any(f.reconstructed_steps for f in member1) or not all(
+            f.reconstructed_steps for f in member0):
+        raise AssertionError(f"lm {label} run: reconstructions by rid "
+                             f"{[f.reconstructed_steps for f in futs]}")
+    ties = {f.rid: check_tokens(f"rid {f.rid}", f.result(), loops[f.rid])
+            for f in member1}
+    agree = float(np.mean([a == b for f in member0
+                           for a, b in zip(f.result(), loops[f.rid][0])]))
+    log(f"[lm] {label}: member-1 streams equal the uncoded loop "
+        f"(near-tie (step, gap) by rid: {ties}); member-0 streams rebuilt "
+        f"{[f.reconstructed_steps for f in member0]} steps, their tokens "
+        f"match the loop's in {agree:.2%} of places (the sum parity is an "
+        f"approximation for a nonlinear model)")
+    return agree
 
 
 def phase_lm():
@@ -1364,25 +1417,7 @@ def phase_lm():
                                              straggle_ms, delay)
     log_serve(f"member 0 delayed {delay_s * 1e3:.0f} ms per job", strag,
               setup_s, serve_s, straggle_ms)
-    # slots fill member 0 first: rids 0-3 live on member 0, 4-7 on member 1
-    member1 = [f for f in futs if f.rid >= LM_SLOTS]
-    member0 = [f for f in futs if f.rid < LM_SLOTS]
-    if not strag.reconstructed_steps > 0 or any(
-            len(f.result()) != LM_NEW for f in futs):
-        raise AssertionError(f"lm straggler run: {strag}")
-    if any(f.reconstructed_steps for f in member1) or not all(
-            f.reconstructed_steps for f in member0):
-        raise AssertionError("lm straggler run: reconstructions by rid "
-                             f"{[f.reconstructed_steps for f in futs]}")
-    ties = {f.rid: check_tokens(f"rid {f.rid}", f.result(), loops[f.rid])
-            for f in member1}
-    agree = np.mean([a == b for f in member0
-                     for a, b in zip(f.result(), loops[f.rid][0])])
-    log(f"[lm] straggler: member-1 streams equal the uncoded loop "
-        f"(near-tie (step, gap) by rid: {ties}); member-0 streams rebuilt "
-        f"{[f.reconstructed_steps for f in member0]} steps, their tokens "
-        f"match the loop's in {agree:.2%} of places (the sum parity is an "
-        f"approximation for a nonlinear model)")
+    agree = check_straggler_serve("straggler", futs, strag, loops)
     path3 = {name: v - uncounted.n[name] for name, v in counts().items()}
     routes = {name: c.value for name, c in k_flash.route_launches.items()}
     if routes != {"wgmma": counts()["flash_attention"], "simt": 0}:
@@ -1427,7 +1462,332 @@ def phase_lm():
         decode_routes={"mma": path3["decode_attention"], "simt": 0},
         decode_step_device_ms=step_busy / 3 * 1e3,
         decode_step_device_ops=step_ops / 3,
-        serve_device_busy_share=serve_busy / serve_wall)
+        serve_device_busy_share=serve_busy / serve_wall,
+        rebuilt_token_agreement=agree), dict(
+        cfg=cfg, params=params, prompts=prompts, loops=loops,
+        straggle_ms=straggle_ms, agree=agree)
+
+
+# ------------------------------------------------------------ phase 9 ----
+# parity training at the full width of qwen2-0.5b: phase 8's deployed model
+# (seed 0) is the teacher, the parity model starts from seed 1.  Each step
+# draws one TRAIN_SEQ-token sequence per member, uniform tokens as phase 8's
+# prompts are, so training covers every position the served streams reach.
+# TRAIN_LR: Adam's new value is rounded to the bf16 parameter's 8-bit
+# mantissa, so a step below half an ulp of a weight is lost (the embedding
+# entries, ~0.02, need about 1e-4).  ``--distil-lrs`` runs the distillation
+# alone at other rates: 3e-4, 1e-3 and 3e-3 ended further above the MSE of
+# a parity model answering zeros than 1e-4 did (readings in PERF.md).
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_LR = 60, 1024, 1e-4
+JOINT_STEPS = 3
+# the last 5 steps' mean MSE at most this share of the first 5 steps'
+# (the reference's test_lm_parity_training_loss_decreases)
+TRAIN_DROP = 0.7
+# the custom VJP against autograd through B7's plain version (naive fp32
+# softmax attention) on the same inputs, at qwen2-0.5b's training prefill
+# (as tests/test_torch_gpu.py)
+VJP_SHAPES = ((1, TRAIN_SEQ, 14, 64), (1, TRAIN_SEQ, 2, 64),
+              (1, TRAIN_SEQ, 2, 64))
+VJP_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# remat's gradients against no remat's at full width: at most this share of
+# the largest gradient (one bf16 ulp of a reordered sum is 2^-8 of it)
+REMAT_RTOL = 1e-2
+# one parity step's gradients on the card against the same step on the CPU
+# at reduced qwen2-0.5b (fp32): every leaf's max abs difference at most this
+# share of its max |gradient| (the two differ by fp32 summation order), and
+# the loss within it too
+GRAD_RTOL = 1e-3
+
+
+def card_vs_cpu_grads():
+    """One reduced qwen2-0.5b parity step (``parity_loss_fn(remat=True)``,
+    the loss of ``make_parity_train_step``) on the card, its teacher through
+    B7, its forward and backward through the custom VJP, against the same
+    step on the CPU from the same parameters and tokens.  Every leaf's
+    gradient must be non-zero on the card and agree with the CPU's."""
+    rcfg = get_config(LM_ARCH, reduced=True)
+    host = {"deployed": T.init_params(rcfg, 0, device="cpu"),
+            "parity": T.init_params(rcfg, 1, device="cpu")}
+    toks = np.random.default_rng(3).integers(0, rcfg.vocab, (K, 2, 64))
+    out = {}
+    for dev in ("cpu", DEV):
+        p = tree_map(lambda t: t.clone().to(dev), host)
+        batch = member_batch(rcfg, p["deployed"],
+                             torch.as_tensor(toks, device=dev))
+        loss, grads = value_and_grad(parity_loss_fn(rcfg, remat=True),
+                                     p["parity"], batch)
+        out[dev] = float(loss), [g.detach().cpu() for g in grads]
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[DEV]
+    rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for a, b in zip(g_card, g_cpu)]
+    zero = sum(int(not bool(a.abs().max() > 0)) for a in g_card)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"[train] one reduced parity step ({rcfg.name}, k={K}, tokens "
+        f"[{K},2,64], fp32) on the card against the CPU: loss {l_card:.6f} "
+        f"vs {l_cpu:.6f}; over its {len(g_card)} gradient leaves max abs "
+        f"difference / max |gradient| at most {max(rel):.2e} (tolerance "
+        f"{GRAD_RTOL:g}); leaves with no gradient on the card: {zero}")
+    if zero or max(rel) > GRAD_RTOL or loss_rel > GRAD_RTOL:
+        raise AssertionError(f"train: card step gradients {rel}, {zero} "
+                             f"zero leaves, loss {l_card} vs {l_cpu}")
+    return {"max_rel_grad_diff": max(rel), "zero_leaves": zero,
+            "loss_card": l_card, "loss_cpu": l_cpu}
+
+
+def teacher_vs_torch(cfg, deployed, toks, teacher):
+    """The teacher logits of ``member_batch`` (B7) against the "torch"
+    backend's on the same tokens: (max abs difference, max |logit|)."""
+    with torch.no_grad():
+        want = torch.stack([T.forward(grad_cfg(cfg), deployed, tokens=t)[0]
+                            for t in toks]).float()
+    return float((teacher.float() - want).abs().max()), \
+        float(want.abs().max())
+
+
+def check_vjp():
+    """_FlashCore's output and dq/dk/dv on the card against autograd
+    through B7's plain version (naive softmax attention, fp32 inputs), in
+    fp32 and bf16; max abs errors by dtype."""
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    out = {}
+    for dt, tol_ in VJP_TOL.items():
+        ins = [randn(gen, shape, dt).requires_grad_(True)
+               for shape in VJP_SHAPES]
+        cot = randn(gen, VJP_SHAPES[0], torch.float32)
+        o = L.flash_attention_xla(*ins)
+        got = torch.autograd.grad((o.float() * cot).sum(), ins)
+        ins32 = [t.detach().float().requires_grad_(True) for t in ins]
+        want_o = ref.flash_attention_ref(*ins32)
+        want = torch.autograd.grad((want_o * cot).sum(), ins32)
+        errs = [check_close(f"vjp {name} {dt}", g.detach(), w, tol_, tol_)
+                for name, g, w in zip(("out", "dq", "dk", "dv"),
+                                      (o, *got), (want_o, *want))]
+        out[str(dt).removeprefix("torch.")] = max(errs)
+        log(f"[train] _FlashCore vs autograd through "
+            f"ref.flash_attention_ref (fp32 inputs), q {list(VJP_SHAPES[0])} k/v {list(VJP_SHAPES[1])} {dt}: max "
+            f"abs err out/dq/dk/dv {[f'{e:.2e}' for e in errs]} (atol = "
+            f"rtol = {tol_:g})")
+    return out
+
+
+def member_batch(cfg, params, toks):
+    """Member embeddings and the deployed model's logits for ``toks`` [k, 1,
+    S], made without a graph (not under inference_mode: autograd refuses to
+    save inference tensors); the teacher's attention runs the flash kernel."""
+    with torch.no_grad():
+        return {"embeds": torch.stack([T.embed_tokens(cfg, params, t)
+                                       for t in toks]),
+                "teacher": torch.stack([T.forward(cfg, params, tokens=t)[0]
+                                        for t in toks])}
+
+
+def draw_members(rng, vocab):
+    return torch.as_tensor(rng.integers(0, vocab, (K, 1, TRAIN_SEQ)),
+                           device=DEV)
+
+
+def distil(cfg, deployed, rng, lr=TRAIN_LR):
+    """TRAIN_STEPS of make_parity_train_step(remat=True) from seed 1, the
+    first batch's teacher logits also held against the "torch" backend.
+    Returns the trained parity params, the last batch and the numbers."""
+    parity = T.init_params(cfg, 1, device=DEV)
+    opt = AdamConfig(lr=lr)
+    state = adam_init(parity, opt)
+    step = make_parity_train_step(cfg, opt, remat=True)
+    losses, teach_ms, step_ms, zero = [], [], [], []
+    b7 = counts()["flash_attention"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        toks = draw_members(rng, cfg.vocab)
+        t0 = time.perf_counter()
+        batch = member_batch(cfg, deployed, toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == 0:
+            t_err, t_scale = teacher_vs_torch(cfg, deployed, toks,
+                                              batch["teacher"])
+            log(f"[train] teacher logits through B7 vs the torch backend "
+                f"on the first batch ({K} x {TRAIN_SEQ} tokens): max abs "
+                f"err {t_err:.4f} (max |logit| {t_scale:.3f}, tolerance "
+                f"{LM_LOGIT_TOL:g})")
+            if not t_err <= LM_LOGIT_TOL:
+                raise AssertionError(f"train: teacher logits {t_err} from "
+                                     f"the torch backend's")
+            torch.cuda.synchronize()
+        t1b = time.perf_counter()
+        parity, state, m = step(parity, state, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses.append(float(m["loss"]))
+        teach_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1b) * 1e3)
+        # the MSE of a parity model that answered zeros
+        zero.append(float(batch["teacher"].sum(0).square().mean()))
+    peak = torch.cuda.max_memory_allocated()
+    b7 = counts()["flash_attention"] - b7
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    zero5 = float(np.mean(zero[-5:]))
+    med_step, med_teach = float(np.median(step_ms)), float(np.median(
+        teach_ms))
+    tok_s = K * TRAIN_SEQ / ((med_step + med_teach) / 1e3)
+    log(f"[train] distillation: {TRAIN_STEPS} steps of "
+        f"make_parity_train_step(remat=True), k={K}, one {TRAIN_SEQ}-token "
+        f"sequence per member per step, Adam lr {lr:g}, {cfg.dtype} "
+        f"parameters, fp32 moments; MSE by step {[round(x, 4) for x in losses]}")
+    log(f"[train] lr {lr:g}: mean MSE first 5 steps {first:.4f}, last 5 "
+        f"steps {last:.4f} (ratio {last / first:.3f}); a parity model "
+        f"answering zeros would score {zero5:.4f} on the last 5 batches "
+        f"(ratio {last / zero5:.3f}) and {np.mean(zero):.4f} over all "
+        f"{TRAIN_STEPS}")
+    log(f"[train] median train step {med_step:.2f} ms, median teacher "
+        f"forwards {med_teach:.2f} ms (host clock, synchronized); "
+        f"{tok_s:.0f} member tokens/s ({K}x{TRAIN_SEQ} per step, teacher "
+        f"included); peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated); B7 launches during the teacher forwards "
+        f"{b7} ({TRAIN_STEPS} steps x {K} members x {cfg.n_layers} layers)")
+    del state
+    return parity, batch, dict(
+        steps=TRAIN_STEPS, lr=lr, seq=TRAIN_SEQ, losses=losses,
+        first5=first, last5=last, zero_answer_mse=float(np.mean(zero)),
+        zero_answer_mse_last5=zero5, teacher_vs_torch_err=t_err,
+        step_ms=med_step, teacher_ms=med_teach,
+        member_tokens_per_s=tok_s, peak_bytes=peak, teacher_b7=b7)
+
+
+def check_distil(cfg, dist):
+    first, last = dist["first5"], dist["last5"]
+    if not np.all(np.isfinite(dist["losses"])) or \
+            not last <= TRAIN_DROP * first:
+        raise AssertionError(f"train: MSE {first} -> {last}")
+    if dist["teacher_b7"] != TRAIN_STEPS * K * cfg.n_layers:
+        raise AssertionError(f"train: {dist['teacher_b7']} B7 launches in "
+                             f"the teacher")
+
+
+def remat_grad_diff(cfg, parity, batch):
+    """One step's gradients with and without remat, on the same params and
+    batch: max abs difference and max |gradient|; and the remat'd forward
+    and backward under torch.profiler: (wall s, device-busy s, device
+    operations)."""
+    grads = []
+
+    def fwd_bwd(remat):
+        grads.append(value_and_grad(parity_loss_fn(cfg, remat=remat),
+                                    parity, batch)[1])
+
+    prof = device_profile(lambda: fwd_bwd(True))
+    fwd_bwd(False)
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(*grads))
+    scale = max(float(a.float().abs().max()) for a in grads[0])
+    zero = sum(int(not bool(a.abs().max() > 0)) for a in grads[0])
+    log(f"[train] one step's gradients with remat on and off: max abs "
+        f"difference {diff:.3e} (max |gradient| {scale:.3e}, tolerance "
+        f"{REMAT_RTOL:g} of it); leaves with no gradient: {zero} of "
+        f"{len(grads[0])}")
+    if zero or not diff <= REMAT_RTOL * scale:
+        raise AssertionError(f"train: remat gradients differ by {diff}, "
+                             f"{zero} leaves without a gradient")
+    return diff, scale, prof
+
+
+def joint_steps(cfg, deployed, rng):
+    """JOINT_STEPS of make_joint_parity_train_step with ``learned``, r=1, at
+    full width: the loss stays finite and the encoder's alpha leaves 0."""
+    scheme = get_scheme("learned", k=K, r=1, device=DEV)
+    params = {"enc": tree_map(torch.clone, scheme.enc_params),
+              "parity": [T.init_params(cfg, 2, device=DEV)]}
+    opt = AdamConfig(lr=TRAIN_LR)
+    state = adam_init(params, opt)
+    step = make_joint_parity_train_step(cfg, opt, scheme, remat=True)
+    losses = []
+    for _ in range(JOINT_STEPS):
+        batch = member_batch(cfg, deployed, draw_members(rng, cfg.vocab))
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    alpha = float(params["enc"]["alpha"].detach())
+    log(f"[train] joint learned-encoder + parity training, r=1: losses "
+        f"{[round(x, 4) for x in losses]}, encoder alpha {alpha:.3e} "
+        f"(starts at 0)")
+    if not np.all(np.isfinite(losses)) or alpha == 0.0:
+        raise AssertionError(f"joint training: {losses}, alpha {alpha}")
+    return losses, alpha
+
+
+def phase_train(lm_ctx):
+    cfg, deployed = lm_ctx["cfg"], lm_ctx["params"]
+    rng = np.random.default_rng(1)
+    parity, batch, dist = distil(cfg, deployed, rng)
+    check_distil(cfg, dist)
+    diff, scale, grad_prof = remat_grad_diff(cfg, parity, batch)
+    del batch
+    toks = draw_members(rng, cfg.vocab)
+    teach_prof = device_profile(lambda: member_batch(cfg, deployed, toks))
+    log(f"[train] profiled: the teacher forwards keep the device busy "
+        f"{teach_prof[1] * 1e3:.2f} ms of {teach_prof[0] * 1e3:.2f} ms "
+        f"({teach_prof[2]} device operations); the parity model's remat'd "
+        f"forward and backward {grad_prof[1] * 1e3:.2f} ms of "
+        f"{grad_prof[0] * 1e3:.2f} ms ({grad_prof[2]} device operations)")
+    joint, alpha = joint_steps(cfg, deployed, rng)
+
+    # phase 8's straggler serve again, the parity instance on the trained
+    # model
+    straggle_ms = lm_ctx["straggle_ms"]
+    slow = instance_id("main", 0)
+
+    def delay(iid):
+        return 1.5 * straggle_ms / 1e3 if iid == slow else 0.0
+
+    before = counts()
+    futs, strag, setup_s, serve_s = lm_serve(
+        cfg, deployed, lm_ctx["prompts"], straggle_ms, delay,
+        parity_params=parity)
+    served = {name: counts()[name] - before[name]
+              for name in ("flash_attention", "decode_attention")}
+    log_serve("trained parity, member 0 delayed", strag, setup_s, serve_s,
+              straggle_ms)
+    if not all(served.values()):
+        raise AssertionError(f"trained-parity serve launched {served}")
+    agree = check_straggler_serve("trained parity", futs, strag,
+                                  lm_ctx["loops"])
+    log(f"[train] rebuilt member-0 tokens equal to the uncoded loop: "
+        f"{agree:.2%} with the trained parity model, {lm_ctx['agree']:.2%} "
+        f"with the deployed weights as parity (phase 8), "
+        f"{1 / cfg.vocab:.2e} at random (1/{cfg.vocab})")
+
+    # the reduced launcher end to end (fp32: B7's SIMT route)
+    before = counts()
+    simt = k_flash.route_launches["simt"].value
+    futs, stats = launch_serve.main(["--device", DEV])
+    launched = {name: counts()[name] - before[name]
+                for name in ("parity_encode", "parity_decode",
+                             "flash_attention")}
+    simt = k_flash.route_launches["simt"].value - simt
+    done = sum(stats["completed_by"].values())
+    rebuilt = stats["completed_by"].get("parity", 0)
+    log(f"[train] launch/serve (reduced qwen2-0.5b, fp32): {done} of "
+        f"{len(futs)} queries answered, {rebuilt} rebuilt from parity; "
+        f"launches {launched}, B7 on the SIMT route {simt}; the "
+        f"trained-parity serve launched {served}")
+    if done != len(futs) or not rebuilt:
+        raise AssertionError(f"launch/serve: {stats['completed_by']}")
+    if not all(launched.values()) or simt != launched["flash_attention"]:
+        raise AssertionError(f"launch/serve launched {launched}, SIMT "
+                             f"route {simt}")
+    return dict(distillation=dist,
+                remat_grad_max_abs_diff=diff, grad_max_abs=scale,
+                profiled={"teacher": teach_prof, "fwd_bwd_remat": grad_prof},
+                joint_losses=joint, joint_alpha=alpha,
+                rebuilt_token_agreement_trained=agree,
+                rebuilt_token_agreement_untrained=lm_ctx["agree"],
+                random_agreement=1 / cfg.vocab,
+                trained_serve={"completed_by": strag.completed_by,
+                               "reconstructed_steps":
+                                   strag.reconstructed_steps,
+                               "tokens_per_s": strag.tokens_per_s},
+                launch_serve={"completed_by": stats["completed_by"],
+                              "n": len(futs)})
 
 
 def kernel_entry(name, row, launches, by_path):
@@ -1451,6 +1811,8 @@ PATH1 = ("parity_encode", "fused_encode_forward", "parity_decode",
 PATH2 = ("parity_encode", "parity_decode", "multigroup_decode",
          "learned_project", "berrut_encode")
 PATH3 = ("flash_attention", "decode_attention")
+PATH4 = ("parity_encode", "parity_decode", "flash_attention",
+         "decode_attention")
 
 
 def main():
@@ -1518,7 +1880,7 @@ def main():
                              f"registry's path: {missing}")
 
     # ---- path 3: coded LM serving on full-width qwen2-0.5b (phase 8)
-    path3, lm = phase_lm()
+    path3, lm, lm_ctx = phase_lm()
     t8 = time.perf_counter()
     log(f"[time] phase 8 lm: {t8 - t7:.1f} s")
     log(f"[lm] main-path launches {path3}")
@@ -1527,12 +1889,31 @@ def main():
         raise AssertionError(f"kernels never launched on the LM serving "
                              f"path: {missing}")
 
+    # ---- path 4: LM parity training and serving the trained model
+    # (phase 9); the comparisons first, before the path's counters are
+    # zeroed
+    vjp = check_vjp()
+    card_cpu = card_vs_cpu_grads()
+    for c in ops.counters().values():
+        c.reset()
+    train = phase_train(lm_ctx)
+    train.update(vjp_max_abs_err=vjp, card_vs_cpu_step=card_cpu)
+    path4 = counts()
+    del lm_ctx
+    t9 = time.perf_counter()
+    log(f"[time] phase 9 train: {t9 - t8:.1f} s")
+    log(f"[train] main-path launches {path4}")
+    missing = [name for name in PATH4 if path4[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the LM training "
+                             f"path: {missing}")
+
     kernels = []
     for name in ("parity_encode", "fused_encode_forward", "parity_decode",
                  "multigroup_decode", "learned_project", "berrut_encode",
                  "flash_attention", "decode_attention"):
         by_path = {"mlp_serving": path1[name], "schemes": path2[name],
-                   "lm_serving": path3[name]}
+                   "lm_serving": path3[name], "lm_training": path4[name]}
         kernels.append(kernel_entry(name, rows[name], sum(by_path.values()),
                                     by_path))
     log(json.dumps({"summary": {
@@ -1548,6 +1929,7 @@ def main():
                       "completed_by": byz.completed_by},
         "approxifer_r1_completed_by": straggle.completed_by,
         "lm": lm,
+        "lm_training": train,
         "seconds": time.perf_counter() - t0}}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
@@ -1556,5 +1938,26 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def lr_sweep(lrs):
+    """Phase 9's distillation alone, once at each learning rate of
+    ``lrs`` from the same parameters and batches; prints its lines and no
+    result line."""
+    phase_device()
+    cfg = get_config(LM_ARCH)
+    deployed = T.init_params(cfg, 0, device=DEV)
+    for lr in lrs:
+        distil(cfg, deployed, np.random.default_rng(1), lr)
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
-    main()
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--distil-lrs", default=None,
+                    help="comma-separated learning rates: run phase 9's "
+                         "distillation alone at each and stop")
+    args = ap.parse_args()
+    if args.distil_lrs:
+        lr_sweep([float(x) for x in args.distil_lrs.split(",")])
+    else:
+        main()

@@ -6,6 +6,15 @@ raises — nothing falls back.  Each op keeps the reference's trick of folding
 the missing index into data (an availability-masked coefficient vector), so
 one kernel serves every missing pattern.  Launch counts live on the kernel
 wrappers (``counters()``).
+
+No kernel has a backward (nor has any of the JAX package's Pallas kernels),
+so every op raises ``RuntimeError`` when asked for a gradient: grad mode on
+and a tensor input requiring grad.  It raises on the CPU as well, where the
+plain version would differentiate, so a training forward routed through an
+op fails in the CPU tests instead of training without that gradient on the
+card.  Training differentiates the plain paths (``attn_backend="torch"``,
+``scheme.encode_with_params``); forwards under ``torch.no_grad()`` or
+``torch.inference_mode()`` run the kernels.
 """
 from __future__ import annotations
 
@@ -43,12 +52,25 @@ def _on_card(t):
     raise ValueError(f"no kernel or plain path for device {t.device}")
 
 
+def _no_backward(name, *xs):
+    """Raise when ``name`` is asked for a gradient (see the module's
+    docstring)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{name} has no backward: differentiate through the plain path "
+            "(cfg.replace(attn_backend='torch'), backend='torch' or "
+            "scheme.encode_with_params), or run this forward under "
+            "torch.no_grad()")
+
+
 def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def parity_encode_op(queries, coeffs):
     """queries [k, B, ...] (any trailing feature shape); coeffs [k]."""
+    _no_backward("parity_encode_op", queries, coeffs)
     k, B = queries.shape[:2]
     flat = queries.reshape(k, B, -1)
     c = _f32(coeffs, flat.device)
@@ -66,6 +88,7 @@ def parity_decode_op(parity_out, outputs, missing_idx, coeffs=None):
     host with the reference's formula (avail_i = c_i [i != j],
     inv_c = 1 / c_j), so the card sees one launch; a CUDA ``coeffs`` raises
     ``TypeError``."""
+    _no_backward("parity_decode_op", parity_out, outputs, coeffs)
     j = int(missing_idx)
     if coeffs is None:
         avail, inv_c = np.ones(outputs.shape[0], np.float32), np.float32(1.0)
@@ -85,6 +108,7 @@ def fused_encode_forward_op(queries, coeffs, weights):
     launch.  queries [k, B, ...] (any trailing feature shape, flattened to
     F); coeffs [r, k]; weights [r, F, V] — one first-layer matrix per parity
     row — returns [r, B, V]."""
+    _no_backward("fused_encode_forward_op", queries, coeffs, weights)
     k, B = queries.shape[:2]
     flat = queries.reshape(k, B, math.prod(queries.shape[2:]))   # F may be 0
     C = _f32(coeffs, flat.device)
@@ -101,6 +125,7 @@ def multigroup_decode_op(parity_outs, outputs, missing_idxs, coeffs):
     are treated as batch 1); outputs [G, k, B, V...]; missing_idxs [G] ints;
     coeffs [k] (shared) or [G, k] (per-group).  Returns reconstructions
     shaped like ``parity_outs``."""
+    _no_backward("multigroup_decode_op", parity_outs, outputs, coeffs)
     G, k = outputs.shape[:2]
     dev = outputs.device
     if parity_outs.ndim >= 3:
@@ -128,6 +153,7 @@ def multigroup_decode_op(parity_outs, outputs, missing_idxs, coeffs):
 def berrut_encode_op(queries, coeffs):
     """Approxifer encode projection: queries [k, B, ...] (any trailing
     feature shape); coeffs [r, k] -> [r, B, ...], one launch for all r."""
+    _no_backward("berrut_encode_op", queries, coeffs)
     k, B = queries.shape[:2]
     flat = queries.reshape(k, B, -1)
     c = _f32(coeffs, flat.device)
@@ -141,6 +167,7 @@ def berrut_encode_op(queries, coeffs):
 def learned_project_op(h, w):
     """Learned-encoder final projection: h [H, B, ...] (any trailing feature
     shape); w [H, r] -> [r, B, ...]."""
+    _no_backward("learned_project_op", h, w)
     hd, B = h.shape[:2]
     flat = h.reshape(hd, B, -1)
     wf = _f32(w, flat.device)
@@ -159,7 +186,10 @@ def _aligned(t):
 
 def flash_attention_op(q, k, v, *, causal=True, window=0):
     """Prefill attention: q [B,Sq,H,hd]; k,v [B,Sk,KV,hd] -> [B,Sq,H,hd];
-    query row i sits at position i (no q_offset)."""
+    query row i sits at position i (no q_offset).  Training runs attention
+    on the "torch" backend (``models.layers.flash_attention_xla``, the
+    custom VJP)."""
+    _no_backward("flash_attention_op", q, k, v)
     if _on_card(q):
         return _flash.flash_attention(_aligned(q), _aligned(k), _aligned(v),
                                       causal=causal, window=window)
@@ -170,6 +200,7 @@ def decode_attention_op(q, k_cache, v_cache, pos):
     """One-token decode attention: q [B,H,hd]; caches [B,S,KV,hd]; pos a
     scalar or [B] per-row positions (int, numpy or tensor); valid slots
     j <= pos[b]."""
+    _no_backward("decode_attention_op", q, k_cache, v_cache)
     if not _on_card(q):
         return ref.decode_attention_ref(q, k_cache, v_cache, pos)
     if isinstance(pos, torch.Tensor):

@@ -9,12 +9,12 @@ layouts (dense weights [in, out]).  Attention routes by ``backend`` (default
   ``decode_attention_op`` for decode: the CUDA kernels on CUDA tensors, their
   plain versions on CPU tensors.  A prefill with ``q_offset != 0`` takes the
   online-softmax path, because the kernel lacks that feature;
-* ``"torch"`` — the online-softmax KV-block scan (``flash_attention_xla``)
-  and ``attention_decode_xla``, twins of the JAX package's "jnp" paths.
+* ``"torch"`` — the online-softmax KV-block scan (``flash_attention_xla``,
+  with the JAX package's custom VJP) and ``attention_decode_xla``, twins of
+  the JAX package's "jnp" paths.  Training differentiates this path only.
 
-Cross attention, the custom VJP of the block scan and the sharding
-constraints are not ported: the slice serves dense decoder stacks on one card
-(``ROADMAP.md`` A8).
+Cross attention and the sharding constraints are not ported: the port runs
+dense decoder stacks on one card (``ROADMAP.md`` A5).
 
 Decode writes the new key/value row into the cache IN PLACE (the JAX
 package rebinds an immutable pool): callers that need the old cache clone
@@ -130,11 +130,17 @@ def _block_mask(qpos, kpos, Sk, causal, window):
 
 def flash_attention_xla(q, k, v, *, causal=True, window=0, q_offset=0,
                         block=1024):
-    """q [B,Sq,H,hd]; k,v [B,Sk,KV,hd] -> [B,Sq,H,hd].  The forward pass of
-    the JAX package's block scan: KV blocks carrying an fp32 (max, denom,
+    """q [B,Sq,H,hd]; k,v [B,Sk,KV,hd] -> [B,Sq,H,hd].  Keyword-friendly
+    wrapper over the custom-VJP core (:class:`_FlashCore`)."""
+    return _FlashCore.apply(q, k, v, causal, window, q_offset, block)
+
+
+def _flash_fwd_impl(q, k, v, causal, window, q_offset, block):
+    """The JAX package's block scan: KV blocks carrying an fp32 (max, denom,
     acc), GQA as grouped einsums over the un-repeated K/V, q scaled in its
     own dtype, scores and the P.V product accumulated in fp32 with P cast to
-    V's dtype.  (The custom VJP waits for training.)"""
+    V's dtype.  Returns (out, lse), lse [B,KV,rep,Sq] the log-sum-exp of
+    each query row's scaled scores."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -148,9 +154,9 @@ def flash_attention_xla(q, k, v, *, causal=True, window=0, q_offset=0,
     acc = torch.zeros((B, KV, rep, Sq, hd), dtype=torch.float32, device=dev)
     for start in range(0, Sk, block):
         kblk, vblk = k[:, start:start + block], v[:, start:start + block]
-        kpos = start + torch.arange(block, device=dev)
+        kpos = start + torch.arange(kblk.shape[1], device=dev)
         s = torch.einsum("bqgrd,bkgd->bgrqk", qs, kblk.float())
-        valid = _block_mask(qpos, kpos[:kblk.shape[1]], Sk, causal, window)
+        valid = _block_mask(qpos, kpos, Sk, causal, window)
         s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -160,7 +166,68 @@ def flash_attention_xla(q, k, v, *, causal=True, window=0, q_offset=0,
             "bgrqk,bkgd->bgrqd", p.to(v.dtype).float(), vblk.float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    return out, m + torch.log(torch.clamp(l, min=1e-30))
+
+
+def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_offset,
+                    block):
+    """The JAX package's ``_flash_bwd``: block scores are recomputed from
+    q, k and lse (nothing of size [nb, B, H, Sq, block] is kept), delta =
+    rowsum(dO * O), dV sums over the rep query heads of a KV head, dq is
+    scaled once at the end.  fp32 throughout; the results in the inputs'
+    dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = hd ** -0.5
+    blk = min(block, Sk)
+    dev = q.device
+    qpos = q_offset + torch.arange(Sq, device=dev)
+    qs = (q.reshape(B, Sq, KV, rep, hd) * scale).float()
+    do = dout.reshape(B, Sq, KV, rep, hd).permute(0, 2, 3, 1, 4).float()
+    o32 = out.reshape(B, Sq, KV, rep, hd).permute(0, 2, 3, 1, 4).float()
+    delta = (do * o32).sum(-1)                            # [B,KV,rep,Sq]
+    dq = torch.zeros((B, Sq, KV, rep, hd), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for start in range(0, Sk, blk):
+        kblk = k[:, start:start + blk].float()            # [B,blk,KV,hd]
+        vblk = v[:, start:start + blk].float()
+        kpos = start + torch.arange(kblk.shape[1], device=dev)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qs, kblk)
+        valid = _block_mask(qpos, kpos, Sk, causal, window)
+        s = torch.where(valid, s, NEG_INF)
+        p = torch.exp(s - lse[..., None])                 # [B,KV,rep,Sq,bk]
+        dvs.append(torch.einsum("bgrqk,bgrqd->bkgd", p, do))
+        dp = torch.einsum("bgrqd,bkgd->bgrqk", do, vblk)
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.einsum("bgrqk,bkgd->bqgrd", ds, kblk)
+        dks.append(torch.einsum("bgrqk,bqgrd->bkgd", ds, qs))
+    dq = (dq * scale).reshape(B, Sq, H, hd).to(q.dtype)
+    return (dq, torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _FlashCore(torch.autograd.Function):
+    """The block scan with the JAX package's custom VJP (``_flash_core``):
+    the forward saves (q, k, v, out, lse), O(S*d), and the backward
+    recomputes the block scores instead of keeping the scan's
+    exp(s - m) residuals.  Both passes are plain PyTorch: the JAX package
+    differentiates only this scan (its flash kernel, B7, has no backward,
+    and ``kernels.ops.flash_attention_op`` refuses a gradient)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, block):
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, q_offset, block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.static = (causal, window, q_offset, block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, dout, *ctx.static)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention_decode_xla(q, k_cache, v_cache, pos, *, window=0):

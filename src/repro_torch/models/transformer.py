@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.convert import resolve_device, tree_leaves
 from repro_torch.models import layers as L
@@ -87,11 +88,18 @@ def init_params(cfg, seed=0, *, device="cuda"):
     N(0, 0.02^2), dense weights N(0, 1/fan_in), zero biases, unit norm
     scales.  ``seed`` is an int or a ``torch.Generator`` on ``device``
     (the draws differ from JAX's for the same seed; tests carry JAX's
-    parameters over with ``convert.params_from_numpy`` instead)."""
+    parameters over with ``convert.params_from_numpy`` instead).
+    ``device="meta"`` gives the shapes and dtypes and allocates nothing.
+    The leaves do not require grad: a train step turns that on for the
+    leaves it trains."""
     dev = resolve_device(device)
     plan = _dense_plan(cfg)
-    gen = seed if isinstance(seed, torch.Generator) else \
-        torch.Generator(device=dev).manual_seed(int(seed))
+    if dev.type == "meta":
+        gen = None                    # a meta tensor holds no draws
+    elif isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
     dt = L.torch_dtype(cfg)
     D, V, G = cfg.d_model, cfg.vocab, (cfg.n_groups,)
     p = {"embed": (torch.randn((V, D), generator=gen, device=dev)
@@ -136,16 +144,25 @@ def _group(tree, g):
     return tree[g]
 
 
-def _stack_fwd(cfg, stacked, x, ctx, plan):
+def _stack_fwd(cfg, stacked, x, ctx, plan, remat=False):
     """Python loop over the groups; returns x and, when collecting, the
     caches stacked along a leading group axis as the reference's scan
-    stacks them."""
-    per_group = []
-    for g in range(cfg.n_groups):
+    stacks them.  ``remat`` checkpoints each group (the reference's
+    ``jax.checkpoint`` of the scan body): its activations are recomputed in
+    the backward pass instead of kept."""
+    def group(x, g):
         caches = []
         for i in range(len(plan)):
             x, c = _layer_fwd(cfg, _group(stacked[i], g), x, ctx)
             caches.append(c)
+        return x, caches
+
+    per_group = []
+    for g in range(cfg.n_groups):
+        if remat:
+            x, caches = checkpoint(group, x, g, use_reentrant=False)
+        else:
+            x, caches = group(x, g)
         per_group.append(caches)
     if not ctx["collect_cache"]:
         return x, None
@@ -208,16 +225,19 @@ def _make_ctx(cfg, S, device, *, collect_cache=False, cache_len=0):
             "cache_len": cache_len}
 
 
-def forward(cfg, params, tokens=None, embeds=None, unembed_last_only=False):
+def forward(cfg, params, tokens=None, embeds=None, remat=False,
+            unembed_last_only=False):
     """Teacher-forced full-sequence logits. Returns (logits_f32, aux); aux is
     0 for dense stacks (it carries the MoE router loss in the reference).
 
-    ``unembed_last_only`` skips the [B, S, V] unembed and projects only the
-    final position — the serving prefill only consumes the last token."""
+    ``remat`` recomputes each group's activations in the backward pass
+    (training); ``unembed_last_only`` skips the [B, S, V] unembed and
+    projects only the final position — the serving prefill only consumes
+    the last token."""
     plan = _dense_plan(cfg)
     x = _embed(cfg, params, tokens, embeds)
     ctx = _make_ctx(cfg, x.shape[1], x.device)
-    x, _ = _stack_fwd(cfg, params["blocks"], x, ctx, plan)
+    x, _ = _stack_fwd(cfg, params["blocks"], x, ctx, plan, remat=remat)
     if unembed_last_only:
         x = x[:, -1:]
     return _logits(cfg, params, x), torch.zeros((), device=x.device)

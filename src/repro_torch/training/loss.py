@@ -1,5 +1,5 @@
-"""Loss functions: softmax cross-entropy and the paper's parity-distillation
-MSE (§3.3 / §4.1 — MSE keeps ParM task-agnostic)."""
+"""Loss functions: next-token cross-entropy for LM training and the paper's
+parity-distillation MSE (§3.3 / §4.1 — MSE keeps ParM task-agnostic)."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +14,12 @@ def softmax_xent(logits, labels, mask=None):
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
+
+
+def lm_loss(logits, tokens, aux=0.0, aux_coef=0.01):
+    """Shifted next-token loss; ``aux`` is the MoE load-balance term."""
+    return (softmax_xent(logits[:, :-1], tokens[:, 1:])
+            + aux_coef * aux)
 
 
 def parity_mse(parity_out, target_sum):

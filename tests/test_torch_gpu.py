@@ -415,3 +415,79 @@ def test_project_kernel_edges(cuda, H, r, B, F, dt, aligned):
     torch.cuda.synchronize()
     assert ops.counters()["learned_project"].value == before + 1
     _close(got, ref.learned_project_ref(h, w), _tol(dt) * 4, _tol(dt) * 4)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,hd,block", [
+    (1, 1024, 14, 2, 64, 1024),          # qwen2-0.5b's training prefill
+    (2, 300, 4, 2, 32, 128),             # three KV blocks, the last ragged
+])
+def test_flash_core_backward_on_the_card(cuda, B, S, H, KV, hd, block, dt):
+    """The block scan's custom VJP (plain torch on CUDA tensors) against
+    autograd through B7's plain version (naive softmax attention) on the
+    same inputs in fp32: fp32 within 2e-4, bf16 within 3e-2 (the bf16
+    attention tolerance)."""
+    from repro_torch.models import layers as L
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(dt)
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    cot = torch.randn((B, S, H, hd), generator=cuda, device="cuda")
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = L.flash_attention_xla(*ins, block=block)
+    got = torch.autograd.grad((out.float() * cot).sum(), ins)
+    ins32 = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want_out = ref.flash_attention_ref(*ins32)
+    want = torch.autograd.grad((want_out * cot).sum(), ins32)
+    tol = 2e-4 if dt == torch.float32 else 3e-2
+    _close(out, want_out, tol, tol)
+    for g, w in zip(got, want):
+        assert g.dtype == dt
+        _close(g, w, tol, tol)
+
+
+def test_parity_train_step_on_the_card_lowers_the_loss(cuda):
+    """Reduced qwen2-0.5b (fp32) on the card: the teacher's logits come
+    through the flash kernel (B7) under no_grad, and 20 distillation steps
+    on one batch bring the MSE below 0.7x its first value."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optim import AdamConfig, adam_init
+    from repro_torch.training.train_lib import make_parity_train_step
+    cfg = get_config("qwen2-0.5b", reduced=True)
+    deployed = T.init_params(cfg, 0, device="cuda")
+    parity = T.init_params(cfg, 1, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 4, 32), generator=cuda,
+                         device="cuda")
+    before = ops.counters()["flash_attention"].value
+    with torch.no_grad():
+        batch = {"embeds": torch.stack([T.embed_tokens(cfg, deployed, t)
+                                        for t in toks]),
+                 "teacher": torch.stack([T.forward(cfg, deployed,
+                                                   tokens=t)[0]
+                                         for t in toks])}
+    assert ops.counters()["flash_attention"].value == \
+        before + 2 * cfg.n_layers
+    opt = AdamConfig(lr=3e-3)
+    step = make_parity_train_step(cfg, opt, remat=True)
+    state = adam_init(parity, opt)
+    losses = []
+    for _ in range(20):
+        parity, state, m = step(parity, state, batch)
+        losses.append(float(m["loss"]))
+    assert ops.counters()["flash_attention"].value == \
+        before + 2 * cfg.n_layers             # training never launched B7
+    assert all(np.isfinite(losses)) and losses[-1] < 0.7 * losses[0], losses
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_ops_refuse_a_gradient_on_the_card(cuda, dt):
+    """On CUDA tensors too, an op asked for a gradient raises before it
+    launches anything."""
+    q = torch.randn((1, 64, 4, 32), generator=cuda, device="cuda").to(dt)
+    kv = torch.randn((1, 64, 2, 32), generator=cuda, device="cuda").to(dt)
+    before = {n: c.value for n, c in ops.counters().items()}
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention_op(q.requires_grad_(True), kv, kv)
+    x = torch.randn((2, 3, 8), generator=cuda, device="cuda").to(dt)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.parity_encode_op(x.requires_grad_(True), [1.0, 1.0])
+    assert {n: c.value for n, c in ops.counters().items()} == before
