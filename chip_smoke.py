@@ -46,15 +46,26 @@ Phases, in order; any failure exits non-zero:
                torch backend's), remat's gradients against no remat's,
                three joint learned-encoder steps, phase 8's straggler serve
                with the trained parity model, and ``launch/serve`` at
-               reduced size.
+               reduced size;
+10. hybrid   — with phases 8-9's models freed: full-width deepseek-moe-16b
+               (MoE, B7/B8 at 16 heads over 16, head_dim 128) and
+               mamba2-780m (SSM, attention-free), bf16, served as phase 8
+               serves qwen2-0.5b, each held against an uncoded greedy loop;
+               deepseek's kernel-path logits against the torch backend's
+               beside that backend's own noise floor, mamba2's decode
+               against its forward (bf16, and an fp32 copy), the decode
+               steps' host and device time and host syncs; then reduced
+               jamba-1.5-large-398b (fp32) on the card, kernels against
+               torch and decode against forward.
 
 ``python3 chip_smoke.py --distil-lrs 1e-4,1e-3`` runs phase 9's
 distillation alone at each learning rate and prints no result line.
 
-The launch counters are zeroed before each of the four paths (phases 3-4, the
+The launch counters are zeroed before each of the five paths (phases 3-4, the
 coded MLP serving path; phases 5-7, the scheme registry's path; phase 8, coded
-LM serving; phase 9, LM parity training and serving the trained model) and
-read after it; every kernel of a path must have run on it.
+LM serving; phase 9, LM parity training and serving the trained model; phase
+10, MoE / SSM / hybrid LM serving) and read after it; every kernel of a path
+must have run on it.
 Launches made only to compare a kernel path with its plain twin are not
 counted.  The last two lines of
 standard output are a ``{"kernels": [...]}`` JSON object and the
@@ -66,6 +77,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import math
 import re
@@ -99,7 +112,8 @@ from repro_torch.kernels import multigroup_decode as k_mg  # noqa: E402
 from repro_torch.kernels import parity_decode as k_dec  # noqa: E402
 from repro_torch.kernels import parity_encode as k_enc  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.launch.roofline import decode_token_cost  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    decode_token_cost, estimate_param_count)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.cnn import build  # noqa: E402
@@ -371,15 +385,18 @@ def sweep_kernels():
     # dtypes, plus ragged edges, windows and one-token prompts (B7), and
     # per-row pos, a pos past the cache and rep up to 16 (B8).  B7 also at
     # each shape its paths give it: the longest LM prompt (910, a ragged
-    # last key tile), phase 9's teacher forwards (1024 tokens, eight full
-    # tiles) and launch/serve's reduced qwen2-0.5b (fp32 teacher batch of 4
-    # and single queries, 32 tokens)
+    # last key tile) at qwen2-0.5b's heads and at deepseek-moe-16b's (16
+    # over 16, hd 128: phase 10), phase 9's teacher forwards (1024 tokens,
+    # eight full tiles) and launch/serve's reduced qwen2-0.5b (fp32 teacher
+    # batch of 4 and single queries, 32 tokens); B8 also on a full serving
+    # pool at each model's heads
     for B, Sq, Sk, H, KV, hd, causal, window in [
             (2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 4, 4, 64, True, 64),
             (2, 100, 100, 2, 1, 32, False, 0), (1, 128, 128, 8, 2, 128, True, 0),
             (3, 33, 47, 6, 3, 128, False, 16), (2, 70, 70, 4, 2, 32, True, 5),
             (1, 1, 1, 14, 2, 64, True, 0), (2, 129, 129, 14, 2, 128, True, 0),
             (1, 910, 910, 14, 2, 64, True, 0),
+            (1, 910, 910, 16, 16, 128, True, 0),
             (1, 1024, 1024, 14, 2, 64, True, 0),
             (4, 32, 32, 4, 2, 64, True, 0), (1, 32, 32, 4, 2, 64, True, 0)]:
         for dt in (torch.float32, torch.bfloat16):
@@ -403,6 +420,7 @@ def sweep_kernels():
             (1, 1024, 8, 1, 32, 0), (3, 256, 2, 2, 64, 255),
             (3, 16, 4, 2, 64, [2, 9, 5]), (2, 100, 32, 2, 128, [99, 5000]),
             (4, 1280, 14, 2, 64, [300, 1279, 5, 700]),
+            (4, 1280, 16, 16, 128, B8_POS),
             (1, 8192, 16, 1, 128, 8191), (1, 8, 4, 2, 32, 0)]:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(gen, (B, H, hd), dt)
@@ -461,8 +479,17 @@ def sweep_fused(gen):
 
 def one_launch(label, fn, kernel):
     """Raise unless 20 calls of ``fn`` issue 20 launches of ``kernel`` and
-    no other device operation."""
-    seen = device_ops(fn)
+    no other device operation.  The calls are traced in two windows and
+    each operation counted at its larger count: a trace now and then loses
+    one kernel event (a window of 20 B8 calls read 19 once), which the
+    other window shows; an extra or missing operation of the calls
+    themselves shows in both."""
+    first, second = device_ops(fn), device_ops(fn)
+    seen = {key: max(first.get(key, 0), second.get(key, 0))
+            for key in {**first, **second}}
+    if first != second:
+        log(f"[kernels] {label}: the two traced windows differ ({first} / "
+            f"{second}); counted at the larger")
     if len(seen) != 1 or sum(seen.values()) != 20 or \
             kernel not in next(iter(seen)):
         raise AssertionError(f"{label}: 20 calls issued {seen} on the "
@@ -497,24 +524,22 @@ def library_device_ms(fn, iters=50):
     return busy / iters * 1e3
 
 
-def attention_rows(gen):
-    """B7 and B8 at the shapes the LM path gives them, in bf16: B7 on the
-    longest prompt of phase 8, B8 on a full serving step's cache pool with
-    mixed per-row positions."""
+def b7_row(gen, P, H, KV, hd):
+    """B7 on one causal bf16 prompt of P tokens at batch 1: error against
+    the plain version, and the kernel's, plain version's and SDPA's
+    times."""
     bf = torch.bfloat16
-    rows = {}
-    P = max(len(p) for p in lm_prompts(get_config(LM_ARCH).vocab))
-    B, H, KV, hd = 1, 14, 2, 64
+    B = 1
     q, k, v = (randn(gen, (B, P, n, hd), bf) for n in (H, KV, KV))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     got = k_flash.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
     lib_err = check_close("B7 library", sdpa(qt, kt, vt, is_causal=True)
-                          .transpose(1, 2), ref.flash_attention_ref(q, k, v),
-                          attn_tol(bf), 0.0)
+                          .transpose(1, 2), want, attn_tol(bf), 0.0)
     pairs = P * (P + 1) // 2                     # (query, key) the mask keeps
-    rows["flash_attention"] = dict(
+    return dict(
         shape=[B, P, H, KV, hd], replaces="src/repro/kernels/flash_attention.py:73",
-        max_abs_err=check_close("B7", got, ref.flash_attention_ref(q, k, v),
+        max_abs_err=check_close(f"B7 {[B, P, H, KV, hd]}", got, want,
                                 attn_tol(bf), 0.0),
         ms=time_ms(lambda: k_flash.flash_attention(q, k, v), iters=50),
         device_ms=device_ms(lambda: k_flash.flash_attention(q, k, v),
@@ -529,10 +554,17 @@ def attention_rows(gen):
         bound=bound(2 * (B * P * H * hd + B * P * KV * hd) * 2,
                     4 * hd * pairs * H * B, bf))
 
+
+def b8_row(gen, H, KV, hd, pos):
+    """B8 on a full serving step's cache pool (LM_SLOTS slots of LM_SEQ,
+    bf16) at the per-row positions ``pos``: error against the plain
+    version, the kernel's, plain version's and SDPA's times, and a check
+    that one call is one launch and no other device operation."""
+    bf = torch.bfloat16
     B, S = LM_SLOTS, LM_SEQ
     q = randn(gen, (B, H, hd), bf)
     kc, vc = randn(gen, (B, S, KV, hd), bf), randn(gen, (B, S, KV, hd), bf)
-    pos = torch.tensor([300, 1279, 517, 1031], dtype=torch.int32, device=DEV)
+    pos = torch.tensor(pos, dtype=torch.int32, device=DEV)
     mask = (torch.arange(S, device=DEV)[None, :] <= pos[:, None])[
         :, None, None, :]
     q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
@@ -542,22 +574,16 @@ def attention_rows(gen):
 
     got = b8()
     want = ref.decode_attention_ref(q, kc, vc, pos)
-    one_launch("B8", b8, "decode_cluster_kernel")
-    log("[kernels] decode_attention: 20 calls of the wrapper issue 20 "
-        "launches of decode_cluster_kernel and no other device operation")
-    for (dt, hd_), (size, capacity) in sorted(
-            k_dattn.cluster_decisions().items(), key=str):
-        log(f"[kernels] decode_attention cluster decision ({dt}, hd {hd_}): "
-            f"{size} CTAs per (b, kv-head); clusters the card holds at once "
-            f"by size: {capacity}")
+    one_launch(f"B8 {[B, S, H, KV, hd]}", b8, "decode_cluster_kernel")
     lib_err = check_close("B8 library", sdpa(q4, kt, vt, attn_mask=mask)[:, :,
                                                                         0],
                           want, attn_tol(bf), 0.0)
     valid = int(torch.clamp(pos + 1, max=S).sum())   # cache rows read
-    rows["decode_attention"] = dict(
+    row = dict(
         shape=[B, S, H, KV, hd], pos=pos.tolist(),
         replaces="src/repro/kernels/decode_attention.py:63",
-        max_abs_err=check_close("B8", got, want, attn_tol(bf), 0.0),
+        max_abs_err=check_close(f"B8 {[B, S, H, KV, hd]}", got, want,
+                                attn_tol(bf), 0.0),
         ms=time_ms(b8),
         device_ms=device_ms(b8, "decode_cluster_kernel"),
         plain_ms=time_ms(lambda: ref.decode_attention_ref(q, kc, vc, pos)),
@@ -568,6 +594,28 @@ def attention_rows(gen):
         # q and out once, each valid cache row of k and v once, pos
         bound=bound(2 * B * H * hd * 2 + 2 * valid * KV * hd * 2 + B * 4,
                     4 * hd * H * valid, bf))
+    return row, b8, (q, kc, vc, pos)
+
+
+# phase 8's per-row decode positions of a full serving step
+B8_POS = [300, 1279, 517, 1031]
+
+
+def attention_rows(gen):
+    """B7 and B8 at the shapes the LM paths give them, in bf16: B7 on the
+    longest prompt of phases 8 and 10 (qwen2-0.5b's 14 heads over 2 at
+    hd 64, deepseek-moe-16b's 16 over 16 at hd 128), B8 on a full serving
+    step's cache pool with mixed per-row positions at each model's heads.
+    The qwen2 rows are the kernels' JSON rows; the deepseek rows ride in
+    them as ``deepseek``."""
+    rows = {}
+    P = max(len(p) for p in lm_prompts(get_config(LM_ARCH).vocab))
+    rows["flash_attention"] = b7_row(gen, P, 14, 2, 64)
+    rows["decode_attention"], b8, (q, kc, vc, pos) = b8_row(
+        gen, 14, 2, 64, B8_POS)
+    log("[kernels] decode_attention: 20 calls of the wrapper issue 20 "
+        "launches of decode_cluster_kernel and no other device operation "
+        "(at qwen2-0.5b's and at deepseek-moe-16b's heads)")
     # the device time at each cluster size (the card's pick is above), and
     # with one valid slot per row: what a launch costs whatever pos is
     by_cluster = {}
@@ -583,6 +631,16 @@ def attention_rows(gen):
     log(f"[kernels] decode_attention device ms by cluster size {by_cluster}; "
         f"with pos 0 in every row (one slot) "
         f"{fmt_ms(rows['decode_attention']['one_slot_device_ms'])}")
+    moe = get_config(MOE_ARCH)
+    H, KV, hd = moe.n_heads, moe.n_kv_heads, moe.resolved_head_dim
+    rows["flash_attention"]["deepseek"] = b7_row(gen, P, H, KV, hd)
+    rows["decode_attention"]["deepseek"] = b8_row(gen, H, KV, hd,
+                                                  B8_POS)[0]
+    for (dt, hd_), (size, capacity) in sorted(
+            k_dattn.cluster_decisions().items(), key=str):
+        log(f"[kernels] decode_attention cluster decision ({dt}, hd {hd_}): "
+            f"{size} CTAs per (b, kv-head); clusters the card holds at once "
+            f"by size: {capacity}")
     return rows
 
 
@@ -793,7 +851,10 @@ def measure_kernels():
             "plain_ms", "library_ms", "library_device_ms", "bound")})
     rows.update(attention_rows(gen))
     for name, row in rows.items():
-        for one in row.get("shapes", [dict(row, label="")]):
+        shapes = row.get("shapes", [dict(row, label="")])
+        if "deepseek" in row:
+            shapes = shapes + [dict(row["deepseek"], label="deepseek-moe-16b")]
+        for one in shapes:
             dev = fmt_ms(one["device_ms"])
             log(f"[kernels] {name:21s} {one['label']} shape={one['shape']} "
                 f"max_abs_err={one['max_abs_err']:.3e} ms={one['ms']:.5f} "
@@ -810,9 +871,12 @@ def measure_kernels():
         f"ms={b3['ms']:.5f}, parity_decode_op ms={b3['op_ms']:.5f}, "
         f"LinearScheme.decode_one ms={b3['decode_one_ms']:.5f}")
     for name in ("flash_attention", "decode_attention"):
-        log(f"[kernels] {name} library call (scaled_dot_product_attention) "
-            f"max abs err vs plain {rows[name]['library_err']:.3e}, device "
-            f"ms={rows[name]['library_device_ms']:.5f}")
+        for label, one in (("", rows[name]),
+                           (" deepseek-moe-16b", rows[name]["deepseek"])):
+            log(f"[kernels] {name}{label} library call "
+                f"(scaled_dot_product_attention) max abs err vs plain "
+                f"{one['library_err']:.3e}, device "
+                f"ms={one['library_device_ms']:.5f}")
     return rows
 
 
@@ -1175,39 +1239,49 @@ def lm_prompts(vocab):
 
 def lm_greedy(cfg, params, prompt):
     """The uncoded greedy loop over the port's prefill / decode_step (batch
-    1, scalar pos): tokens, and each step's top-2 logit gap and runner-up."""
-    toks, gaps, second = [], [], []
+    1, scalar pos): tokens, each step's top-2 logit gap and runner-up, and
+    each step's eight best tokens with their gaps to the best."""
+    toks, gaps, second, ranked = [], [], [], []
     with torch.inference_mode():
         logits, cache = T.prefill(cfg, params, tokens=torch.tensor(
             [prompt], device=DEV), cache_len=LM_SEQ)
         row = logits[0, -1]
         for pos in range(len(prompt), len(prompt) + LM_NEW):
-            top = torch.topk(row, 2)
+            top = torch.topk(row, 8)
             toks.append(int(top.indices[0]))
             second.append(int(top.indices[1]))
             gaps.append(float(top.values[0] - top.values[1]))
+            ranked.append(dict(zip(top.indices.tolist(),
+                                   (top.values[0] - top.values).tolist())))
             if len(toks) == LM_NEW:
                 break
             logits, cache = T.decode_step(
                 cfg, params, cache, pos,
                 token=torch.tensor([[toks[-1]]], device=DEV))
             row = logits[0, 0]
-    return toks, gaps, second
+    return toks, gaps, second, ranked
 
 
-def check_tokens(label, served, loop):
+def check_tokens(label, served, loop, any_rank=False):
     """Served tokens against the loop's, under the near-tie rule; returns
-    (step, top-2 gap) where they first differ, or None."""
-    toks, gaps, second = loop
+    (step, gap) where they first differ, or None.  The served token must be
+    the loop's runner-up at a top-2 gap below LM_GAP_TOL or, with
+    ``any_rank`` (phase 10), any of the loop's eight best within LM_GAP_TOL
+    of its best: an SSM carries the server's batch-4 rounding forward in
+    its state, and its bf16 logits meet three-way near-ties."""
+    toks, gaps, second, ranked = loop
     if len(served) != LM_NEW:
         raise AssertionError(f"{label}: {len(served)} tokens, not {LM_NEW}")
     for t, (a, b) in enumerate(zip(served, toks)):
         if a != b:
             if gaps[t] < LM_GAP_TOL and a == second[t]:
                 return t, gaps[t]
+            if any_rank and ranked[t].get(a, LM_GAP_TOL) < LM_GAP_TOL:
+                return t, ranked[t][a]
             raise AssertionError(
                 f"{label}: token {t} is {a}, the loop's is {b} (top-2 gap "
-                f"{gaps[t]:.4f}, runner-up {second[t]})")
+                f"{gaps[t]:.4f}, runner-up {second[t]}, the served token's "
+                f"gap to the best {ranked[t].get(a, 'beyond the top 8')})")
     return None
 
 
@@ -1250,8 +1324,8 @@ def lm_serve(cfg, params, prompts, straggle_ms, delay_fn=None,
     return futs, stats, t1 - t0, t2 - t1
 
 
-def log_serve(label, stats, setup_s, serve_s, straggle_ms):
-    log(f"[lm] {label}: straggle_ms={straggle_ms:.1f} set-up {setup_s:.2f} s "
+def log_serve(label, stats, setup_s, serve_s, straggle_ms, tag="lm"):
+    log(f"[{tag}] {label}: straggle_ms={straggle_ms:.1f} set-up {setup_s:.2f} s "
         f"(warm-up included), served in {serve_s:.2f} s; "
         f"completed_by={stats.completed_by} "
         f"reconstructed_steps={stats.reconstructed_steps} "
@@ -1314,7 +1388,8 @@ def device_profile(fn):
     return wall, busy, n
 
 
-def check_straggler_serve(label, futs, stats, loops):
+def check_straggler_serve(label, futs, stats, loops, tag="lm",
+                          any_rank=False):
     """Member 0 late on every job: its streams rebuilt, member 1's equal to
     the uncoded loop (up to bf16 near-ties).  Returns the share of member
     0's tokens that match the loop's."""
@@ -1328,11 +1403,11 @@ def check_straggler_serve(label, futs, stats, loops):
             f.reconstructed_steps for f in member0):
         raise AssertionError(f"lm {label} run: reconstructions by rid "
                              f"{[f.reconstructed_steps for f in futs]}")
-    ties = {f.rid: check_tokens(f"rid {f.rid}", f.result(), loops[f.rid])
-            for f in member1}
+    ties = {f.rid: check_tokens(f"rid {f.rid}", f.result(), loops[f.rid],
+                                any_rank) for f in member1}
     agree = float(np.mean([a == b for f in member0
                            for a, b in zip(f.result(), loops[f.rid][0])]))
-    log(f"[lm] {label}: member-1 streams equal the uncoded loop "
+    log(f"[{tag}] {label}: member-1 streams equal the uncoded loop "
         f"(near-tie (step, gap) by rid: {ties}); member-0 streams rebuilt "
         f"{[f.reconstructed_steps for f in member0]} steps, their tokens "
         f"match the loop's in {agree:.2%} of places (the sum parity is an "
@@ -1354,7 +1429,7 @@ def phase_lm():
     # comparisons first, before the path's counters are zeroed
     t0 = time.perf_counter()
     loops = [lm_greedy(cfg, params, p) for p in prompts]
-    min_gap = min(min(g) for _, g, _ in loops)
+    min_gap = min(min(loop[1]) for loop in loops)
     err, scale = lm_teacher_forced(cfg, params, prompts[0], loops[0][0])
     log(f"[lm] uncoded greedy loop over {len(prompts)} prompts in "
         f"{time.perf_counter() - t0:.2f} s (smallest top-2 gap "
@@ -1790,6 +1865,426 @@ def phase_train(lm_ctx):
                               "n": len(futs)})
 
 
+# ----------------------------------------------------------- phase 10 ----
+# the MoE, SSM and hybrid LM paths: deepseek-moe-16b (28 MoE layers of 64
+# routed experts, top-6, and 2 shared; 16 heads over 16 KV heads at head_dim
+# 128; vocab 102400) and mamba2-780m (48 SSD layers, d_inner 3072, 48 heads
+# of 64, state 128, tied embeddings) at full width in bf16, random weights
+# from seed 0, served as phase 8 serves qwen2-0.5b; then reduced
+# jamba-1.5-large-398b (mamba + MLP and attention + MoE layers, fp32)
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("deepseek-moe-16b", "mamba2-780m",
+                                   "jamba-1.5-large-398b")
+# kernels against the torch backend on one teacher-forced sequence, per
+# position (max |logit difference| over the vocab): B7 and the torch scan
+# round differently, and where that moves a router near-tie (64 experts,
+# top-6) a token takes another expert, and with it the capacity places of
+# the tokens after it.  The model amplifies any rounding difference so, and
+# the same forward through the torch scan in another summation order shows
+# how far: the kernel path's p99 and median are held to MOE_FLOOR_FACTOR
+# times that floor's (or LM_LOGIT_TOL where the floor is below it).
+MOE_FLOOR_FACTOR = 2.0
+# mamba2-780m: prefill + 16 decode steps (the recurrence) against the
+# teacher-forced forward (the chunked SSD) on the same tokens, per position.
+# In fp32 (a copy of the same weights) held to HYBRID_PROP, the reference's
+# tolerance; in bf16 each of the 48 layers rounds its output where the two
+# algorithms differ, so the max is held to SSM_FLOOR_FACTOR times the bf16
+# model's own distance from its fp32 copy (the forward in both), or to
+# SSM_LOGIT_TOL where that is smaller
+SSM_LOGIT_TOL, SSM_FLOOR_FACTOR = 0.1, 2.0
+# reduced jamba (fp32, capacity factor 8 so that nothing drops): kernels vs
+# torch backend as the card tests hold it, decode vs forward as the
+# reference's tests/test_prefill_decode.py holds it
+HYBRID_TOL, HYBRID_PROP = 2e-4, 2e-3
+
+
+def gib(nbytes):
+    return nbytes / 2 ** 30
+
+
+def pct(d):
+    """max, p99 and median of a 1-d tensor."""
+    d = d.float().cpu().numpy()
+    return float(d.max()), float(np.percentile(d, 99)), float(np.median(d))
+
+
+@contextlib.contextmanager
+def scan_block(block):
+    """The torch backend's block scan over KV blocks of ``block`` keys
+    instead of its default: the same function summed in another order."""
+    default = L.flash_attention_xla
+    L.flash_attention_xla = functools.partial(default, block=block)
+    try:
+        yield
+    finally:
+        L.flash_attention_xla = default
+
+
+def backends_per_position(cfg, params, toks):
+    """Teacher-forced logits of ``toks`` [1, S] through the "kernels"
+    backend, the "torch" backend, and the "torch" backend with 128-key
+    blocks (its noise floor: the same attention in another summation
+    order).  Returns per-position max |difference| of kernels vs torch and
+    of torch vs torch-128, the share of positions whose argmax agrees in
+    each pair, and max |logit|."""
+    out = {}
+    with torch.inference_mode():
+        for backend in ("kernels", "torch"):
+            out[backend] = T.forward(cfg.replace(attn_backend=backend),
+                                     params, tokens=toks)[0][0]
+        with scan_block(128):
+            out["torch128"] = T.forward(cfg.replace(attn_backend="torch"),
+                                        params, tokens=toks)[0][0]
+
+    def diff(a, b):
+        return ((out[a] - out[b]).abs().amax(-1),
+                float((out[a].argmax(-1) == out[b].argmax(-1)).float()
+                      .mean()))
+    return diff("kernels", "torch"), diff("torch128", "torch"), \
+        float(out["torch"].abs().max())
+
+
+def decode_vs_forward(cfg, params, prompt, cont):
+    """Prefill of ``prompt`` and one scalar-pos decode step per token of
+    ``cont`` against the teacher-forced forward over prompt + cont:
+    per-position max |logit difference| over the len(cont) + 1 positions
+    the steps predict, and the forward's logits there."""
+    toks = torch.tensor([prompt + cont], device=DEV)
+    P = len(prompt)
+    with torch.inference_mode():
+        full = T.forward(cfg, params, tokens=toks)[0][0]
+        last, cache = T.prefill(cfg, params, tokens=toks[:, :P],
+                                cache_len=LM_SEQ)
+        rows = [last[0, -1]]
+        for j in range(len(cont)):
+            logits, cache = T.decode_step(cfg, params, cache, P + j,
+                                          token=toks[:, P + j:P + j + 1])
+            rows.append(logits[0, 0])
+    want = full[P - 1:P + len(cont)]
+    return (torch.stack(rows) - want).abs().amax(-1), want
+
+
+def route_counts():
+    return ({n: c.value for n, c in k_flash.route_launches.items()},
+            {n: c.value for n, c in k_dattn.route_launches.items()})
+
+
+def route_delta(before):
+    now = route_counts()
+    return tuple({n: now[i][n] - before[i][n] for n in now[i]}
+                 for i in range(2))
+
+
+def served_lm(tag, cfg, params, prompts, loops):
+    """Phase 8's two serves on a full-width model: clean (tokens equal to
+    the uncoded loop up to bf16 near-ties), then member 0 late on every job
+    (reconstructed steps, member 1 equal to the loop)."""
+    futs, clean, setup_s, serve_s = lm_serve(cfg, params, prompts, 10_000.0)
+    log_serve("no straggler", clean, setup_s, serve_s, 10_000.0, tag=tag)
+    ties = {f.rid: check_tokens(f"{tag} rid {f.rid}", f.result(),
+                                loops[f.rid], any_rank=True) for f in futs}
+    if clean.reconstructed_steps or clean.n != LM_REQUESTS * LM_NEW:
+        raise AssertionError(f"{tag} clean run: {clean}")
+    log(f"[{tag}] no straggler: all {LM_REQUESTS} requests answered "
+        f"{LM_NEW} tokens equal to the uncoded loop (first differing "
+        f"(step, top-2 gap) at a near-tie, by rid: "
+        f"{ {r: t for r, t in ties.items() if t is not None} })")
+    straggle_ms = max(25.0, 3.0 * clean.inter_token_p50_ms)
+    delay_s = 1.5 * straggle_ms / 1e3
+    slow = instance_id("main", 0)
+
+    def delay(iid):
+        return delay_s if iid == slow else 0.0
+
+    futs, strag, setup_s, serve_s = lm_serve(cfg, params, prompts,
+                                             straggle_ms, delay)
+    log_serve(f"member 0 delayed {delay_s * 1e3:.0f} ms per job", strag,
+              setup_s, serve_s, straggle_ms, tag=tag)
+    agree = check_straggler_serve("straggler", futs, strag, loops, tag=tag,
+                                  any_rank=True)
+    return dict(clean={"completed_by": clean.completed_by, "n": clean.n,
+                       "tokens_per_s": clean.tokens_per_s,
+                       "p50_ms": clean.inter_token_p50_ms,
+                       "p99_ms": clean.p99_ms},
+                straggler={"completed_by": strag.completed_by, "n": strag.n,
+                           "reconstructed_steps": strag.reconstructed_steps,
+                           "straggle_ms": straggle_ms,
+                           "tokens_per_s": strag.tokens_per_s,
+                           "p50_ms": strag.inter_token_p50_ms,
+                           "p99_ms": strag.p99_ms},
+                rebuilt_token_agreement=agree)
+
+
+def host_syncs(fn):
+    """The warnings of the calls inside ``fn`` that make the host wait for
+    the device (``torch.cuda.set_sync_debug_mode("warn")``); inputs made
+    before ``fn`` do not count."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.inference_mode():
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def step_costs(tag, cfg, params, prompts, uncounted):
+    """One decode step at batch LM_SLOTS (host ms, device ms and device
+    operations) beside ``decode_token_cost``, and the longest prompt's
+    prefill (uncounted: measurement runs)."""
+    pos = [len(p) + LM_NEW // 2 for p in prompts[:LM_SLOTS]]
+    longest = max(prompts, key=len)
+    with uncounted():
+        step_ms = decode_step_ms(cfg, params, pos)
+        pre_ms = prefill_ms(cfg, params, longest)
+        cache = T.init_cache(cfg, LM_SLOTS, LM_SEQ, device=DEV)
+        tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEV)
+
+        def three_steps():
+            with torch.inference_mode():
+                for _ in range(3):
+                    T.decode_step(cfg, params, cache, torch.tensor(
+                        pos, device=DEV), token=tok)
+        _, busy, n_ops = device_profile(three_steps)
+        pos_d = torch.tensor(pos, device=DEV)
+        syncs = host_syncs(lambda: T.decode_step(cfg, params, cache, pos_d,
+                                                 token=tok))
+        del cache
+    log(f"[{tag}] host synchronizations inside one decode step "
+        f"(torch.cuda.set_sync_debug_mode): {len(syncs)}"
+        + (f", the first: {syncs[0]}" if syncs else ""))
+    if syncs:
+        raise AssertionError(f"{tag}: the decode step waits on the device "
+                             f"{len(syncs)} times: {syncs}")
+    kv_len = int(np.mean(pos)) + 1
+    roof_ms = 1e3 * decode_token_cost(cfg, batch=LM_SLOTS, kv_len=kv_len)
+    log(f"[{tag}] decode step batch {LM_SLOTS} at pos {pos}: host "
+        f"{step_ms:.3f} ms (synchronized, mean of 20), device busy "
+        f"{busy / 3 * 1e3:.3f} ms in {n_ops / 3:.0f} device operations "
+        f"(profiled, mean of 3); H100 SXM roofline decode_token_cost("
+        f"batch={LM_SLOTS}, kv_len={kv_len}) {roof_ms:.4f} ms (active "
+        f"parameters only), host/roofline {step_ms / roof_ms:.1f}; prefill "
+        f"of the longest prompt ({len(longest)} tokens, batch 1) "
+        f"{pre_ms:.3f} ms (host, synchronized, mean of 5)")
+    return dict(decode_step_ms=step_ms, decode_step_device_ms=busy / 3 * 1e3,
+                decode_step_device_ops=n_ops / 3, roofline_ms=roof_ms,
+                prefill_ms=pre_ms, prefill_tokens=len(longest))
+
+
+def full_width(tag, arch):
+    """A full-width model from seed 0: (cfg, params, a line's facts)."""
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, device=DEV)
+    torch.cuda.synchronize()
+    n = T.param_count(params)
+    info = dict(params=n, estimate=estimate_param_count(cfg),
+                allocated_gib=gib(torch.cuda.memory_allocated()),
+                init_s=time.perf_counter() - t0)
+    log(f"[{tag}] {cfg.name} ({cfg.source}), {cfg.dtype}: {n} parameters "
+        f"from seed 0 (roofline estimate_param_count {info['estimate']}); "
+        f"{info['allocated_gib']:.2f} GiB allocated after init "
+        f"({info['init_s']:.1f} s)")
+    return cfg, params, info
+
+
+def phase_moe(uncounted):
+    cfg, params, info = full_width("moe", MOE_ARCH)
+    log(f"[moe] {cfg.n_layers} layers, all MoE: {cfg.n_experts} routed "
+        f"experts top-{cfg.moe_top_k} and {cfg.n_shared_experts} shared, "
+        f"moe_d_ff {cfg.moe_d_ff}; d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads over {cfg.n_kv_heads} KV heads at head_dim "
+        f"{cfg.resolved_head_dim}; vocab {cfg.vocab}, untied head")
+    prompts = lm_prompts(cfg.vocab)
+    before_routes = route_counts()
+    # comparisons first, uncounted
+    t0 = time.perf_counter()
+    with uncounted():
+        loops = [lm_greedy(cfg, params, p) for p in prompts]
+        toks = torch.tensor([prompts[0] + loops[0][0]], device=DEV)
+        (d, agree), (floor, floor_agree), scale = backends_per_position(
+            cfg, params, toks)
+    err, base = pct(d), pct(floor)
+    log(f"[moe] uncoded greedy loop over {len(prompts)} prompts of "
+        f"{sorted(map(len, prompts))} tokens in "
+        f"{time.perf_counter() - t0:.2f} s; teacher-forced forward over "
+        f"{toks.shape[1]} tokens, per-position max |logit err| (max, p99, "
+        f"median): kernel path vs torch backend "
+        f"{tuple(round(x, 4) for x in err)}, argmax equal at "
+        f"{agree:.2%} of positions; torch backend with 128-key blocks vs "
+        f"torch (the same attention summed in another order: the noise "
+        f"floor) {tuple(round(x, 4) for x in base)}, argmax equal at "
+        f"{floor_agree:.2%}; position 0 (attends to itself only) "
+        f"{float(d[0]):.4f}; max |logit| {scale:.3f}; tolerance: p99 and "
+        f"median at most {MOE_FLOOR_FACTOR:g}x the floor's or "
+        f"{LM_LOGIT_TOL:g}")
+    if not all(e <= max(MOE_FLOOR_FACTOR * f, LM_LOGIT_TOL)
+               for e, f in zip(err[1:], base[1:])):
+        raise AssertionError(f"moe: kernel logits vs torch backend {err}, "
+                             f"noise floor {base}")
+    served = served_lm("moe", cfg, params, prompts, loops)
+    costs = step_costs("moe", cfg, params, prompts, uncounted)
+    flash, dec = route_delta(before_routes)
+    if flash != {"wgmma": sum(flash.values()), "simt": 0} or \
+            not flash["wgmma"]:
+        raise AssertionError(f"moe: B7 launches by route {flash}")
+    if dec != {"mma": sum(dec.values()), "simt": 0} or not dec["mma"]:
+        raise AssertionError(f"moe: B8 launches by route {dec}")
+    path = {name: counts()[name] - uncounted.n[name]
+            for name in ("flash_attention", "decode_attention")}
+    log(f"[moe] B7 and B8 at {cfg.n_heads} heads over {cfg.n_kv_heads} "
+        f"(rep {cfg.n_heads // cfg.n_kv_heads}), head_dim "
+        f"{cfg.resolved_head_dim}: "
+        f"{path['flash_attention']} and {path['decode_attention']} launches "
+        f"on the path so far; every launch of the deepseek runs on the "
+        f"tensor-core routes (comparison runs included: B7 {flash}, B8 "
+        f"{dec})")
+    del params
+    torch.cuda.empty_cache()
+    return dict(info, logit_err=dict(zip(("max", "p99", "median"), err),
+                                     argmax_agree=agree),
+                logit_noise_floor=dict(zip(("max", "p99", "median"), base),
+                                       argmax_agree=floor_agree),
+                flash_routes=flash, decode_routes=dec, **served, **costs)
+
+
+def phase_ssm(uncounted):
+    cfg, params, info = full_width("ssm", SSM_ARCH)
+    log(f"[ssm] {cfg.n_layers} SSD layers, d_inner {cfg.d_inner}, "
+        f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, conv {cfg.ssm_conv}; "
+        f"vocab {cfg.vocab}, tied embeddings")
+    prompts = lm_prompts(cfg.vocab)
+    before = counts()
+    t0 = time.perf_counter()
+    with uncounted():
+        loops = [lm_greedy(cfg, params, p) for p in prompts]
+        d, want = decode_vs_forward(cfg, params, prompts[0], loops[0][0])
+        p32 = tree_map(lambda x: x.float(), params)
+        d32, want32 = decode_vs_forward(cfg.replace(dtype="float32"), p32,
+                                        prompts[0], loops[0][0])
+        del p32
+    floor = (want - want32).abs().amax(-1)
+    mx, p99, med = pct(d)
+    mx32, mxf = float(d32.max()), float(floor.max())
+    tol16 = max(SSM_LOGIT_TOL, SSM_FLOOR_FACTOR * mxf)
+    log(f"[ssm] uncoded greedy loop over {len(prompts)} prompts in "
+        f"{time.perf_counter() - t0:.2f} s; prefill of {len(prompts[0])} "
+        f"tokens + {LM_NEW} decode steps (the recurrence) vs the "
+        f"teacher-forced forward (the chunked SSD), per-position max |logit "
+        f"err| over {len(d)} positions: bf16 max {mx:.4f} p99 {p99:.4f} "
+        f"median {med:.4f} (max |logit| {float(want.abs().max()):.3f}; "
+        f"tolerance {tol16:.4f}: {SSM_FLOOR_FACTOR:g}x the bf16 forward's "
+        f"distance from its fp32 copy, max {mxf:.4f}, or {SSM_LOGIT_TOL:g}); "
+        f"fp32 copy of the weights max {mx32:.3e} (tolerance "
+        f"{HYBRID_PROP:g})")
+    if not (mx <= tol16 and mx32 <= HYBRID_PROP):
+        raise AssertionError(f"ssm: decode vs forward bf16 {mx} (tolerance "
+                             f"{tol16}), fp32 {mx32}")
+    served = served_lm("ssm", cfg, params, prompts, loops)
+    costs = step_costs("ssm", cfg, params, prompts, uncounted)
+    launched = {name: counts()[name] - before[name]
+                for name in ("flash_attention", "decode_attention")}
+    log(f"[ssm] B7 and B8 launches on this path: {launched} — none, as "
+        f"expected: mamba2-780m is attention-free (no layer of its plan "
+        f"attends), so its serving runs no kernel of the port")
+    if any(launched.values()):
+        raise AssertionError(f"ssm: attention kernels launched {launched}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(info, decode_vs_forward={"max": mx, "p99": p99,
+                                         "median": med, "fp32_max": mx32,
+                                         "bf16_vs_fp32_forward_max": mxf},
+                attention_launches=launched, **served, **costs)
+
+
+def phase_hybrid():
+    """Reduced jamba (fp32) on the card: "kernels" against "torch", and
+    decode against forward; B7 and B8 on their SIMT routes."""
+    cfg = get_config(HYBRID_ARCH, reduced=True).replace(capacity_factor=8.0)
+    params = T.init_params(cfg, 0, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    B, P, N = 2, 16, 8
+    toks = torch.randint(0, cfg.vocab, (B, P + N), generator=gen,
+                         device=DEV)
+    before, before_routes = counts(), route_counts()
+    out = {}
+    with torch.inference_mode():
+        for backend in ("kernels", "torch"):
+            c = cfg.replace(attn_backend=backend)
+            full, aux = T.forward(c, params, tokens=toks)
+            last, cache = T.prefill(c, params, tokens=toks[:, :P],
+                                    cache_len=P + N)
+            rows = [last[:, 0]]
+            for t in range(P, P + N - 1):
+                logits, cache = T.decode_step(
+                    c, params, cache, torch.full((B,), t, device=DEV),
+                    token=toks[:, t:t + 1])
+                rows.append(logits[:, 0])
+            out[backend] = (full, aux, torch.stack(rows, 1))
+    k_full, k_aux, k_steps = out["kernels"]
+    t_full, t_aux, t_steps = out["torch"]
+    err = max(float((k_full - t_full).abs().max()),
+              float((k_steps - t_steps).abs().max()),
+              abs(float(k_aux - t_aux)))
+    prop = float((k_steps - k_full[:, P - 1:P + N - 1]).abs().max())
+    launched = {name: counts()[name] - before[name]
+                for name in ("flash_attention", "decode_attention")}
+    flash, dec = route_delta(before_routes)
+    log(f"[hybrid] {cfg.name} (fp32, capacity factor 8, plan "
+        f"{[(s['mixer'], s['ffn']) for s in T.layer_plan(cfg)]}): kernels "
+        f"vs torch backend max abs err {err:.3e} over forward, aux and "
+        f"{N} decode positions (tolerance {HYBRID_TOL:g}); decode vs "
+        f"forward {prop:.3e} (tolerance {HYBRID_PROP:g}); aux "
+        f"{float(k_aux):.4f}; launches {launched}, B7 by route {flash}, B8 "
+        f"by route {dec}")
+    if not (err <= HYBRID_TOL and prop <= HYBRID_PROP):
+        raise AssertionError(f"hybrid: kernels vs torch {err}, decode vs "
+                             f"forward {prop}")
+    if not all(launched.values()) or flash != {
+            "wgmma": 0, "simt": launched["flash_attention"]} or dec != {
+            "mma": 0, "simt": launched["decode_attention"]}:
+        raise AssertionError(f"hybrid: launches {launched}, routes {flash} "
+                             f"{dec}")
+    return dict(kernels_vs_torch=err, decode_vs_forward=prop,
+                launches=launched)
+
+
+def phase10():
+    """The MoE / SSM / hybrid path: (main-path launches, summary)."""
+    for c in ops.counters().values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    uncounted = Uncounted()
+    moe = phase_moe(uncounted)
+    ssm = phase_ssm(uncounted)
+    hybrid = phase_hybrid()
+    path = {name: v - uncounted.n[name] for name, v in counts().items()}
+    peak = gib(torch.cuda.max_memory_allocated())
+    log(f"[hybrid] main-path launches {path} (comparison and measurement "
+        f"launches left out: {dict(uncounted.n)}); peak memory of the "
+        f"phase {peak:.2f} GiB")
+    missing = [name for name in PATH5 if path[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the MoE / SSM / "
+                             f"hybrid serving path: {missing}")
+    return path, dict(moe=moe, ssm=ssm, hybrid=hybrid, peak_gib=peak)
+
+
+def deepseek_entry(row):
+    """A kernel's measurements at deepseek-moe-16b's shapes (phase 2)."""
+    return {"shape": row["shape"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "device_ms": row["device_ms"],
+            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"],
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            **({"pos": row["pos"]} if "pos" in row else {})}
+
+
 def kernel_entry(name, row, launches, by_path):
     source = CSRC_ATTN if name in PATH3 else CSRC
     return {"name": name, "route": "cuda", "source": source,
@@ -1799,6 +2294,8 @@ def kernel_entry(name, row, launches, by_path):
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"], "shape": row["shape"],
             "launches_by_path": by_path,
+            **({"deepseek": deepseek_entry(row["deepseek"])}
+               if "deepseek" in row else {}),
             **{key: row[key] for key in (
                 "op_ms", "decode_one_ms", "library_device_ms",
                 "cold_device_ms", "empty_launch_device_ms",
@@ -1813,6 +2310,7 @@ PATH2 = ("parity_encode", "parity_decode", "multigroup_decode",
 PATH3 = ("flash_attention", "decode_attention")
 PATH4 = ("parity_encode", "parity_decode", "flash_attention",
          "decode_attention")
+PATH5 = ("flash_attention", "decode_attention")
 
 
 def main():
@@ -1908,12 +2406,21 @@ def main():
         raise AssertionError(f"kernels never launched on the LM training "
                              f"path: {missing}")
 
+    # ---- path 5: MoE / SSM / hybrid LM serving (phase 10), with phases 8
+    # and 9's models freed first
+    gc.collect()
+    torch.cuda.empty_cache()
+    path5, hybrid = phase10()
+    t10 = time.perf_counter()
+    log(f"[time] phase 10 moe/ssm/hybrid: {t10 - t9:.1f} s")
+
     kernels = []
     for name in ("parity_encode", "fused_encode_forward", "parity_decode",
                  "multigroup_decode", "learned_project", "berrut_encode",
                  "flash_attention", "decode_attention"):
         by_path = {"mlp_serving": path1[name], "schemes": path2[name],
-                   "lm_serving": path3[name], "lm_training": path4[name]}
+                   "lm_serving": path3[name], "lm_training": path4[name],
+                   "moe_ssm_serving": path5[name]}
         kernels.append(kernel_entry(name, rows[name], sum(by_path.values()),
                                     by_path))
     log(json.dumps({"summary": {
@@ -1930,6 +2437,7 @@ def main():
         "approxifer_r1_completed_by": straggle.completed_by,
         "lm": lm,
         "lm_training": train,
+        "moe_ssm_hybrid": hybrid,
         "seconds": time.perf_counter() - t0}}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))

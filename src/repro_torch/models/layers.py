@@ -14,7 +14,8 @@ layouts (dense weights [in, out]).  Attention routes by ``backend`` (default
   the JAX package's "jnp" paths.  Training differentiates this path only.
 
 Cross attention and the sharding constraints are not ported: the port runs
-dense decoder stacks on one card (``ROADMAP.md`` A5).
+decoder-only stacks on one card (cross attention: ``ROADMAP.md`` A5; the
+MoE and Mamba2 layers are ``models/moe.py`` and ``models/mamba.py``).
 
 Decode writes the new key/value row into the cache IN PLACE (the JAX
 package rebinds an immutable pool): callers that need the old cache clone

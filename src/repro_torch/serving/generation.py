@@ -46,11 +46,13 @@ Engines:
   simulator's fast path unchanged.
 
 The port keeps the reference's engine and differs where PyTorch does: the
-KV-cache pools are written in place (``models/transformer.decode_step``
-writes its cache, admissions copy a prefill into their slot column), and
-every write to instance i's pool runs on instance i's executor, whose FIFO
-queue still serializes a straggler's late step before its next one — the
-cache-repair rule is unchanged.  Executors launch on PyTorch's current
+cache pools are written in place (``models/transformer.decode_step``
+writes key/value rows, SSM states and conv tails, admissions copy a prefill
+into their slot column), and every write to instance i's pool runs on
+instance i's executor, whose FIFO queue still serializes a straggler's late
+step before its next one — the cache-repair rule is unchanged.  A decode
+advances an SSM state, so each served pool sees exactly the decodes the
+reference keeps: one per coded step, and none from the warm-up.  Executors launch on PyTorch's current
 stream; ``to_host`` on the logits is the sync point.  ``GenerationSpec``
 drops the reference's ``mesh`` (the port serves on one card) and gains
 ``device`` and ``hardware`` (the sim engine's roofline device).
@@ -381,16 +383,19 @@ class GenerationSession:
         # warm the prefill and both decode paths before any deadline is
         # armed — the kernels' build and first launches would otherwise read
         # as a multi-second straggle on every instance at once, which no
-        # code survives.  The decodes write slot 0 of every column, which
-        # each admission's prefill overwrites.
+        # code survives.  The decodes write a scratch pool of the same shape
+        # that is then dropped, as the reference drops its warm-up caches:
+        # a decode advances an SSM state, so no served pool may see one.
         tok0 = torch.zeros((self.n_slots, 1), dtype=torch.int32,
                            device=self.dev)
         pos0 = torch.zeros((self.n_slots,), dtype=torch.int32,
                            device=self.dev)
         self._prefill(self.params, tokens=tok0[:1], cache_len=self.max_seq)
-        self._decode(self.params, self._caches[0], pos0, token=tok0)
-        self._decode(self.parity_params, self._pcaches[0], pos0,
+        scratch = self._init_cache(params, self.n_slots, self.max_seq)
+        self._decode(self.params, scratch, pos0, token=tok0)
+        self._decode(self.parity_params, scratch, pos0,
                      embed=self._embed(self.params, tok0))
+        del scratch
 
         self._waiting: "queue.Queue" = queue.Queue()
         self._lock = threading.Lock()

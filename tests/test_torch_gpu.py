@@ -491,3 +491,73 @@ def test_ops_refuse_a_gradient_on_the_card(cuda, dt):
     with pytest.raises(RuntimeError, match="no backward"):
         ops.parity_encode_op(x.requires_grad_(True), [1.0, 1.0])
     assert {n: c.value for n, c in ops.counters().items()} == before
+
+
+# --------------------------------------------------------------------------
+# the MoE / SSM / hybrid stacks and B7 / B8 at deepseek-moe-16b's attention
+# (16 heads over 16 KV heads, rep 1, head_dim 128)
+# --------------------------------------------------------------------------
+def test_flash_attention_at_deepseek_heads(cuda):
+    """B7 on the tensor-core route at q/k/v [1, 128, 16, 128] bf16,
+    causal."""
+    from repro_torch.kernels import flash_attention as kf
+    q, k, v = (torch.randn((1, 128, 16, 128), generator=cuda,
+                           device="cuda").bfloat16() for _ in range(3))
+    before = kf.route_launches["wgmma"].value
+    got = ops.flash_attention_op(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kf.route_launches["wgmma"].value == before + 1
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True), 3e-2, 0.0)
+
+
+@pytest.mark.parametrize("pos", [[0, 255, 100, 17], 200])
+def test_decode_attention_at_deepseek_heads(cuda, pos):
+    """B8 on the mma route at q [4, 16, 128], caches [4, 256, 16, 128]
+    bf16 (rep 1: one of the 16 rows of each mma tile)."""
+    from repro_torch.kernels import decode_attention as kd
+    q = torch.randn((4, 16, 128), generator=cuda, device="cuda").bfloat16()
+    kc, vc = (torch.randn((4, 256, 16, 128), generator=cuda,
+                          device="cuda").bfloat16() for _ in range(2))
+    before = kd.route_launches["mma"].value
+    got = ops.decode_attention_op(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert kd.route_launches["mma"].value == before + 1
+    _close(got, ref.decode_attention_ref(q, kc, vc, pos), 3e-2, 0.0)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-1.5-large-398b",
+                                  "mamba2-780m"])
+def test_reduced_hybrid_models_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced MoE, hybrid and SSM models in fp32: forward logits and aux,
+    prefill, and two vector-pos decode steps on the card (through B7 / B8
+    where the plan has attention) against the same parameters on the CPU,
+    within 2e-4; every cache leaf too."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch, reduced=True)
+    params = T.init_params(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (3, 20),
+                         generator=torch.Generator().manual_seed(0))
+    cnt = ops.counters()
+    before = (cnt["flash_attention"].value, cnt["decode_attention"].value)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda x: x.to(dev), params)
+        t = toks.to(dev)
+        with torch.inference_mode():
+            full, aux = T.forward(cfg, p, tokens=t)
+            last, cache = T.prefill(cfg, p, tokens=t[:, :12], cache_len=24)
+            steps = []
+            for j in range(2):
+                pos = torch.tensor([12, 12, 12], device=dev) + j
+                logits, cache = T.decode_step(cfg, p, cache, pos,
+                                              token=t[:, 12 + j:13 + j])
+                steps.append(logits)
+        out[dev] = [full, aux, last, *steps, *tree_leaves(cache)]
+    n_attn = sum(s["mixer"] == "attn" for s in T.layer_plan(cfg)) * \
+        cfg.n_groups
+    assert cnt["flash_attention"].value == before[0] + 2 * n_attn
+    assert cnt["decode_attention"].value == before[1] + 2 * n_attn
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _close(a.cpu(), b, 2e-4, 2e-4)

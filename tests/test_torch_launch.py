@@ -64,7 +64,7 @@ def test_pick_opt_config_switches_to_bf16_moments():
 
 def test_param_shapes_raise_for_plans_not_ported():
     with pytest.raises(NotImplementedError):
-        tsteps.param_shapes(tbase.get_config("deepseek-moe-16b"))
+        tsteps.param_shapes(tbase.get_config("llama-3.2-vision-11b"))
 
 
 @pytest.mark.parametrize("microbatch", [0, 2])
