@@ -56,16 +56,31 @@ Phases, in order; any failure exits non-zero:
                against its forward (bf16, and an fp32 copy), the decode
                steps' host and device time and host syncs; then reduced
                jamba-1.5-large-398b (fp32) on the card, kernels against
-               torch and decode against forward.
+               torch and decode against forward;
+11. cross    — with phase 10's models freed: full-width
+               llama-3.2-vision-11b (cross attention to 1600 stub patch
+               embeddings every fifth layer; B7/B8 at 32 heads over 8,
+               head_dim 128) and seamless-m4t-medium (a bidirectional
+               encoder over 1024 stub frames, every decoder layer
+               cross-attending to its output; B7/B8 at 16 over 16, head_dim
+               64), bf16: four streams prefilled with their context into a
+               4-slot pool and 16 greedy decode steps at batch 4, tokens
+               held against an uncoded greedy loop, kernel-path logits
+               against the torch backend's and each decode step against the
+               forward beside the torch backend's own noise floor, B7/B8
+               launches per prefill and step, the cross K/V unchanged by
+               decode, the decode step's costs, the prefill (and encoder)
+               time; then ``launch/train`` for both at reduced size.
 
 ``python3 chip_smoke.py --distil-lrs 1e-4,1e-3`` runs phase 9's
 distillation alone at each learning rate and prints no result line.
 
-The launch counters are zeroed before each of the five paths (phases 3-4, the
+The launch counters are zeroed before each of the six paths (phases 3-4, the
 coded MLP serving path; phases 5-7, the scheme registry's path; phase 8, coded
 LM serving; phase 9, LM parity training and serving the trained model; phase
-10, MoE / SSM / hybrid LM serving) and read after it; every kernel of a path
-must have run on it.
+10, MoE / SSM / hybrid LM serving; phase 11, cross-attention and
+encoder-decoder LM serving) and read after it; every kernel of a path must
+have run on it.
 Launches made only to compare a kernel path with its plain twin are not
 counted.  The last two lines of
 standard output are a ``{"kernels": [...]}`` JSON object and the
@@ -112,8 +127,9 @@ from repro_torch.kernels import multigroup_decode as k_mg  # noqa: E402
 from repro_torch.kernels import parity_decode as k_dec  # noqa: E402
 from repro_torch.kernels import parity_encode as k_enc  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
-    decode_token_cost, estimate_param_count)
+    decode_token_cost, estimate_param_count, kv_cache_bytes)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.cnn import build  # noqa: E402
@@ -555,13 +571,13 @@ def b7_row(gen, P, H, KV, hd):
                     4 * hd * pairs * H * B, bf))
 
 
-def b8_row(gen, H, KV, hd, pos):
-    """B8 on a full serving step's cache pool (LM_SLOTS slots of LM_SEQ,
-    bf16) at the per-row positions ``pos``: error against the plain
-    version, the kernel's, plain version's and SDPA's times, and a check
-    that one call is one launch and no other device operation."""
+def b8_row(gen, H, KV, hd, pos, S=None):
+    """B8 on a full serving step's cache pool (LM_SLOTS slots of S, LM_SEQ
+    by default, bf16) at the per-row positions ``pos``: error against the
+    plain version, the kernel's, plain version's and SDPA's times, and a
+    check that one call is one launch and no other device operation."""
     bf = torch.bfloat16
-    B, S = LM_SLOTS, LM_SEQ
+    B, S = LM_SLOTS, S or LM_SEQ
     q = randn(gen, (B, H, hd), bf)
     kc, vc = randn(gen, (B, S, KV, hd), bf), randn(gen, (B, S, KV, hd), bf)
     pos = torch.tensor(pos, dtype=torch.int32, device=DEV)
@@ -606,16 +622,15 @@ def attention_rows(gen):
     longest prompt of phases 8 and 10 (qwen2-0.5b's 14 heads over 2 at
     hd 64, deepseek-moe-16b's 16 over 16 at hd 128), B8 on a full serving
     step's cache pool with mixed per-row positions at each model's heads.
-    The qwen2 rows are the kernels' JSON rows; the deepseek rows ride in
-    them as ``deepseek``."""
+    The qwen2 rows are the kernels' JSON rows; the rows at the other
+    models' heads (deepseek-moe-16b; phase 11's llama-3.2-vision-11b, 32
+    heads over 8 at hd 128, and seamless-m4t-medium, 16 over 16 at hd 64)
+    ride in them under the keys of HEAD_ROWS."""
     rows = {}
     P = max(len(p) for p in lm_prompts(get_config(LM_ARCH).vocab))
     rows["flash_attention"] = b7_row(gen, P, 14, 2, 64)
     rows["decode_attention"], b8, (q, kc, vc, pos) = b8_row(
         gen, 14, 2, 64, B8_POS)
-    log("[kernels] decode_attention: 20 calls of the wrapper issue 20 "
-        "launches of decode_cluster_kernel and no other device operation "
-        "(at qwen2-0.5b's and at deepseek-moe-16b's heads)")
     # the device time at each cluster size (the card's pick is above), and
     # with one valid slot per row: what a launch costs whatever pos is
     by_cluster = {}
@@ -636,6 +651,18 @@ def attention_rows(gen):
     rows["flash_attention"]["deepseek"] = b7_row(gen, P, H, KV, hd)
     rows["decode_attention"]["deepseek"] = b8_row(gen, H, KV, hd,
                                                   B8_POS)[0]
+    # phase 11's heads, each on its path's longest prompt and its pool
+    for key, arch in HEAD_ROWS[1:]:
+        cfg = get_config(arch)
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        longest = max(map(len, cross_prompts(cfg)))
+        rows["flash_attention"][key] = b7_row(gen, longest, H, KV, hd)
+        rows["decode_attention"][key] = b8_row(
+            gen, H, KV, hd, CROSS_B8_POS[arch], CROSS_SEQ[arch])[0]
+    log("[kernels] decode_attention: 20 calls of the wrapper issue 20 "
+        "launches of decode_cluster_kernel and no other device operation "
+        "(at the heads of qwen2-0.5b, "
+        + ", ".join(arch for _, arch in HEAD_ROWS) + ")")
     for (dt, hd_), (size, capacity) in sorted(
             k_dattn.cluster_decisions().items(), key=str):
         log(f"[kernels] decode_attention cluster decision ({dt}, hd {hd_}): "
@@ -852,8 +879,8 @@ def measure_kernels():
     rows.update(attention_rows(gen))
     for name, row in rows.items():
         shapes = row.get("shapes", [dict(row, label="")])
-        if "deepseek" in row:
-            shapes = shapes + [dict(row["deepseek"], label="deepseek-moe-16b")]
+        shapes = shapes + [dict(row[key], label=arch)
+                           for key, arch in HEAD_ROWS if key in row]
         for one in shapes:
             dev = fmt_ms(one["device_ms"])
             log(f"[kernels] {name:21s} {one['label']} shape={one['shape']} "
@@ -871,8 +898,8 @@ def measure_kernels():
         f"ms={b3['ms']:.5f}, parity_decode_op ms={b3['op_ms']:.5f}, "
         f"LinearScheme.decode_one ms={b3['decode_one_ms']:.5f}")
     for name in ("flash_attention", "decode_attention"):
-        for label, one in (("", rows[name]),
-                           (" deepseek-moe-16b", rows[name]["deepseek"])):
+        for label, one in (("", rows[name]), *(
+                (f" {arch}", rows[name][key]) for key, arch in HEAD_ROWS)):
             log(f"[kernels] {name}{label} library call "
                 f"(scaled_dot_product_attention) max abs err vs plain "
                 f"{one['library_err']:.3e}, device "
@@ -1237,14 +1264,16 @@ def lm_prompts(vocab):
             for n in rng.integers(256, 1025, LM_REQUESTS)]
 
 
-def lm_greedy(cfg, params, prompt):
+def lm_greedy(cfg, params, prompt, seq=LM_SEQ, **context):
     """The uncoded greedy loop over the port's prefill / decode_step (batch
-    1, scalar pos): tokens, each step's top-2 logit gap and runner-up, and
-    each step's eight best tokens with their gaps to the best."""
+    1, scalar pos, a cache of ``seq`` positions, ``context`` the prefill's
+    cross_embeds where the plan takes one): tokens, each step's top-2 logit
+    gap and runner-up, and each step's eight best tokens with their gaps to
+    the best."""
     toks, gaps, second, ranked = [], [], [], []
     with torch.inference_mode():
         logits, cache = T.prefill(cfg, params, tokens=torch.tensor(
-            [prompt], device=DEV), cache_len=LM_SEQ)
+            [prompt], device=DEV), cache_len=seq, **context)
         row = logits[0, -1]
         for pos in range(len(prompt), len(prompt) + LM_NEW):
             top = torch.topk(row, 8)
@@ -1334,36 +1363,38 @@ def log_serve(label, stats, setup_s, serve_s, straggle_ms, tag="lm"):
         f"(n={stats.n} samples, {max(0, int(stats.n * 0.01))} beyond p99)")
 
 
-def decode_step_ms(cfg, params, pos):
+def host_ms(fn, iters=5, warmup=1):
+    """Host-clock time of one call of ``fn`` under inference mode,
+    synchronized, mean of ``iters`` after ``warmup`` calls."""
+    with torch.inference_mode():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def decode_step_ms(cfg, params, pos, seq=LM_SEQ):
     """Host-clock time of one full-width decode step at batch LM_SLOTS with
-    per-row positions, synchronized, mean of 20 after a warm-up."""
-    cache = T.init_cache(cfg, LM_SLOTS, LM_SEQ, device=DEV)
+    per-row positions over a pool of ``seq`` positions, synchronized, mean
+    of 20 after a warm-up."""
+    cache = T.init_cache(cfg, LM_SLOTS, seq, device=DEV)
     tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEV)
     pos = torch.tensor(pos, device=DEV)
-    with torch.inference_mode():
-        for _ in range(3):
-            T.decode_step(cfg, params, cache, pos, token=tok)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            T.decode_step(cfg, params, cache, pos, token=tok)
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / 20 * 1e3
+    return host_ms(lambda: T.decode_step(cfg, params, cache, pos, token=tok),
+                   iters=20, warmup=3)
 
 
-def prefill_ms(cfg, params, prompt):
+def prefill_ms(cfg, params, prompt, seq=LM_SEQ, **context):
     """Host-clock time of one full-width prefill of ``prompt`` at batch 1
-    into a cache of LM_SEQ positions, synchronized, mean of 5 after a
-    warm-up."""
+    into a cache of ``seq`` positions (with the plan's ``context``),
+    synchronized, mean of 5 after a warm-up."""
     toks = torch.tensor([prompt], device=DEV)
-    with torch.inference_mode():
-        T.prefill(cfg, params, tokens=toks, cache_len=LM_SEQ)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            T.prefill(cfg, params, tokens=toks, cache_len=LM_SEQ)
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / 5 * 1e3
+    return host_ms(lambda: T.prefill(cfg, params, tokens=toks, cache_len=seq,
+                                     **context))
 
 
 def device_profile(fn):
@@ -1919,28 +1950,29 @@ def scan_block(block):
         L.flash_attention_xla = default
 
 
-def backends_per_position(cfg, params, toks):
-    """Teacher-forced logits of ``toks`` [1, S] through the "kernels"
-    backend, the "torch" backend, and the "torch" backend with 128-key
-    blocks (its noise floor: the same attention in another summation
-    order).  Returns per-position max |difference| of kernels vs torch and
-    of torch vs torch-128, the share of positions whose argmax agrees in
-    each pair, and max |logit|."""
+def backends_per_position(cfg, params, toks, **context):
+    """Teacher-forced logits of ``toks`` [1, S] (with the plan's
+    ``context``) through the "kernels" backend, the "torch" backend, and the
+    "torch" backend with 128-key blocks (its noise floor: the same attention
+    in another summation order).  Returns per-position max |difference| of
+    kernels vs torch and of torch vs torch-128, the share of positions whose
+    argmax agrees in each pair, max |logit|, and the kernels' logits."""
     out = {}
     with torch.inference_mode():
         for backend in ("kernels", "torch"):
             out[backend] = T.forward(cfg.replace(attn_backend=backend),
-                                     params, tokens=toks)[0][0]
+                                     params, tokens=toks, **context)[0][0]
         with scan_block(128):
             out["torch128"] = T.forward(cfg.replace(attn_backend="torch"),
-                                        params, tokens=toks)[0][0]
+                                        params, tokens=toks,
+                                        **context)[0][0]
 
     def diff(a, b):
         return ((out[a] - out[b]).abs().amax(-1),
                 float((out[a].argmax(-1) == out[b].argmax(-1)).float()
                       .mean()))
     return diff("kernels", "torch"), diff("torch128", "torch"), \
-        float(out["torch"].abs().max())
+        float(out["torch"].abs().max()), out["kernels"]
 
 
 def decode_vs_forward(cfg, params, prompt, cont):
@@ -2032,16 +2064,18 @@ def host_syncs(fn):
             if "called a synchronizing" in str(w.message)]
 
 
-def step_costs(tag, cfg, params, prompts, uncounted):
-    """One decode step at batch LM_SLOTS (host ms, device ms and device
-    operations) beside ``decode_token_cost``, and the longest prompt's
-    prefill (uncounted: measurement runs)."""
+def step_costs(tag, cfg, params, prompts, uncounted, seq=LM_SEQ,
+               **context):
+    """One decode step at batch LM_SLOTS over a pool of ``seq`` positions
+    (host ms, device ms and device operations) beside ``decode_token_cost``,
+    and the longest prompt's prefill with the plan's ``context`` (uncounted:
+    measurement runs)."""
     pos = [len(p) + LM_NEW // 2 for p in prompts[:LM_SLOTS]]
     longest = max(prompts, key=len)
     with uncounted():
-        step_ms = decode_step_ms(cfg, params, pos)
-        pre_ms = prefill_ms(cfg, params, longest)
-        cache = T.init_cache(cfg, LM_SLOTS, LM_SEQ, device=DEV)
+        step_ms = decode_step_ms(cfg, params, pos, seq)
+        pre_ms = prefill_ms(cfg, params, longest, seq, **context)
+        cache = T.init_cache(cfg, LM_SLOTS, seq, device=DEV)
         tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEV)
 
         def three_steps():
@@ -2106,7 +2140,7 @@ def phase_moe(uncounted):
     with uncounted():
         loops = [lm_greedy(cfg, params, p) for p in prompts]
         toks = torch.tensor([prompts[0] + loops[0][0]], device=DEV)
-        (d, agree), (floor, floor_agree), scale = backends_per_position(
+        (d, agree), (floor, floor_agree), scale, _ = backends_per_position(
             cfg, params, toks)
     err, base = pct(d), pct(floor)
     log(f"[moe] uncoded greedy loop over {len(prompts)} prompts of "
@@ -2275,8 +2309,276 @@ def phase10():
     return path, dict(moe=moe, ssm=ssm, hybrid=hybrid, peak_gib=peak)
 
 
-def deepseek_entry(row):
-    """A kernel's measurements at deepseek-moe-16b's shapes (phase 2)."""
+# ----------------------------------------------------------- phase 11 ----
+# the cross-attention and encoder-decoder paths at full width, bf16, random
+# weights from seed 0: llama-3.2-vision-11b (40 layers, every fifth a
+# cross-attention layer to 1600 stub patch embeddings; 32 heads over 8 KV
+# heads at head_dim 128; d_ff 14336; vocab 128256, untied) and
+# seamless-m4t-medium (12 bidirectional encoder layers over 1024 stub frames,
+# 12 decoder layers that cross-attend to the encoder's output; 16 heads over
+# 16 at head_dim 64; ReLU, d_ff 4096; vocab 256206).  ``deploy_lm`` takes no
+# modality context (``launch/serve`` strips these layers, as the reference's
+# does), so the path is the model's own serving loop: each stream prefilled
+# at batch 1 with its context into a slot of a LM_SLOTS-slot pool (its cross
+# K/V written once), then LM_NEW greedy decode steps at batch LM_SLOTS with a
+# [LM_SLOTS] pos vector, which read the cross K/V from the pool.  Cross
+# attention and the encoder run the torch block scan on both backends, as in
+# the reference: B7 launches only for the decoder's causal self attention.
+VLM_ARCH, ENC_DEC_ARCH = "llama-3.2-vision-11b", "seamless-m4t-medium"
+CROSS_SEQ = {VLM_ARCH: LM_SEQ, ENC_DEC_ARCH: 512}
+# seamless's decoder prompts: 32-256 tokens
+ENC_DEC_PROMPTS = (256, 181, 97, 32)
+# phase 2's per-row B8 positions on each model's pool, its last slot too
+CROSS_B8_POS = {VLM_ARCH: B8_POS, ENC_DEC_ARCH: [264, 511, 105, 40]}
+CROSS_TRAIN_STEPS = 3
+# the rows of B7's and B8's JSON entries at other models' heads (phase 2)
+HEAD_ROWS = (("deepseek", MOE_ARCH), ("llama_vision", VLM_ARCH),
+             ("seamless", ENC_DEC_ARCH))
+
+
+def cross_prompts(cfg):
+    """Phase 11's LM_SLOTS text prompts: phase 8's first (seeded, 463-910
+    tokens) for the VLM; seeded tokens of ENC_DEC_PROMPTS lengths for the
+    encoder-decoder model."""
+    if not cfg.enc_dec:
+        return lm_prompts(cfg.vocab)[:LM_SLOTS]
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, cfg.vocab, n).tolist() for n in ENC_DEC_PROMPTS]
+
+
+def cross_context(cfg):
+    """Stub patch or frame embeddings [LM_SLOTS, n_modality_tokens, D]:
+    0.02 N(0, 1), the reference launcher's draw, from a generator on the
+    card seeded 0, in the model dtype."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    return (0.02 * torch.randn((LM_SLOTS, cfg.n_modality_tokens, cfg.d_model),
+                               generator=gen, device=DEV)).to(
+        L.torch_dtype(cfg))
+
+
+def cross_leaves(cache):
+    return [leaf for layer in cache if "cross" in layer
+            for leaf in tree_leaves(layer["cross"])]
+
+
+def cross_generate(cfg, params, prompts, ctx, seq):
+    """The path: each stream prefilled at batch 1 into its slot of a
+    LM_SLOTS-slot pool of ``seq`` positions, then LM_NEW greedy decode steps
+    at batch LM_SLOTS with a [LM_SLOTS] pos vector.  Returns each stream's
+    LM_NEW + 1 tokens, its logit rows [LM_SLOTS, LM_NEW + 1, V] (its
+    prefill's last, then each step's), the B7 launches of each prefill, the
+    B8 launches of each step, and whether the pool's cross K/V after the
+    steps are bit-equal to what the prefills wrote."""
+    pool = T.init_cache(cfg, LM_SLOTS, seq, device=DEV)
+    first, b7, b8 = [], [], []
+    with torch.inference_mode():
+        for b, prompt in enumerate(prompts):
+            before = counts()["flash_attention"]
+            logits, one = T.prefill(cfg, params, tokens=torch.tensor(
+                [prompt], device=DEV), cross_embeds=ctx[b:b + 1],
+                cache_len=seq)
+            b7.append(counts()["flash_attention"] - before)
+            for dst, src in zip(tree_leaves(pool), tree_leaves(one)):
+                dst[:, b:b + 1] = src
+            first.append(logits[0, -1])
+        written = [leaf.clone() for leaf in cross_leaves(pool)]
+        rows = [torch.stack(first)]
+        toks = [rows[0].argmax(-1)]
+        pos = torch.tensor([len(p) for p in prompts], device=DEV)
+        for step in range(LM_NEW):
+            before = counts()["decode_attention"]
+            logits, pool = T.decode_step(cfg, params, pool, pos + step,
+                                         token=toks[-1][:, None])
+            b8.append(counts()["decode_attention"] - before)
+            rows.append(logits[:, 0])
+            toks.append(rows[-1].argmax(-1))
+        kept = all(torch.equal(a, b)
+                   for a, b in zip(written, cross_leaves(pool)))
+    return torch.stack(toks, 1).tolist(), torch.stack(rows, 1), b7, b8, kept
+
+
+def within_floor(err, floor):
+    """The phase-10 rule: p99 and median at most MOE_FLOOR_FACTOR times the
+    floor's, or LM_LOGIT_TOL where that is larger."""
+    return all(e <= max(MOE_FLOOR_FACTOR * f, LM_LOGIT_TOL)
+               for e, f in zip(err[1:], floor[1:]))
+
+
+def phase_cross_model(tag, arch, uncounted):
+    cfg, params, info = full_width(tag, arch)
+    seq = CROSS_SEQ[arch]
+    prompts, ctx = cross_prompts(cfg), cross_context(cfg)
+    plan = T.layer_plan(cfg)
+    n_self = sum(s["mixer"] == "attn" for s in plan) * cfg.n_groups
+    n_cross = sum(s["cross"] for s in plan) * cfg.n_groups
+    log(f"[{tag}] {cfg.n_layers} decoder layers ({n_self} self attention, "
+        f"{n_cross} cross-attending"
+        + (f"; {cfg.n_enc_layers} bidirectional encoder layers" if
+           cfg.enc_dec else "") + f"), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads at head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.act}), vocab "
+        f"{cfg.vocab}; {LM_SLOTS} streams of {list(map(len, prompts))} prompt "
+        f"tokens, each with {ctx.shape[1]} stub "
+        f"{'frames' if cfg.enc_dec else 'patch embeddings'}; pool of "
+        f"{LM_SLOTS} slots x {seq} positions")
+    before_routes = route_counts()
+    t0 = time.perf_counter()
+    with uncounted():
+        loops = [lm_greedy(cfg, params, p, seq, cross_embeds=ctx[b:b + 1])
+                 for b, p in enumerate(prompts)]
+    loop_s = time.perf_counter() - t0
+
+    # the path, counted
+    t0 = time.perf_counter()
+    served, rows, b7, b8, kept = cross_generate(cfg, params, prompts, ctx,
+                                                seq)
+    path_s = time.perf_counter() - t0
+    ties = {b: check_tokens(f"{tag} stream {b}", served[b][:LM_NEW],
+                            loops[b], any_rank=True)
+            for b in range(LM_SLOTS)}
+    log(f"[{tag}] {LM_SLOTS} streams prefilled into the pool and "
+        f"{LM_NEW} decode steps at batch {LM_SLOTS} in {path_s:.2f} s "
+        f"(uncoded greedy loops, batch 1: {loop_s:.2f} s); served tokens "
+        f"equal to the loop's (first differing (step, gap) at a near-tie, "
+        f"by stream: { {b: t for b, t in ties.items() if t is not None} }); "
+        f"B7 launches per prefill {b7}, B8 launches per decode step "
+        f"{sorted(set(b8))} (expected {n_self}: the decoder's causal self "
+        f"attention only); cross K/V in the pool bit-equal after the "
+        f"{LM_NEW} steps: {kept}")
+    if b7 != [n_self] * LM_SLOTS or b8 != [n_self] * LM_NEW:
+        raise AssertionError(f"{tag}: B7 launches per prefill {b7}, B8 per "
+                             f"step {b8}, expected {n_self} each")
+    if not kept:
+        raise AssertionError(f"{tag}: a decode step changed the cross K/V")
+
+    # kernels vs torch backend, and each decode row vs the forward, per
+    # position (uncounted)
+    with uncounted():
+        diffs = collections.defaultdict(list)
+        for b, prompt in enumerate(prompts):
+            toks = torch.tensor([prompt + served[b][:LM_NEW]], device=DEV)
+            (d, agree), (floor, floor_agree), scale, full = \
+                backends_per_position(cfg, params, toks,
+                                      cross_embeds=ctx[b:b + 1])
+            P = len(prompt)
+            diffs["kernels"].append(d)
+            diffs["floor"].append(floor)
+            diffs["decode"].append(
+                (rows[b] - full[P - 1:P + LM_NEW]).abs().amax(-1))
+            diffs["agree"].append(agree)
+            diffs["floor_agree"].append(floor_agree)
+            diffs["scale"].append(scale)
+        if cfg.enc_dec:
+            before = counts()
+            enc_ms = host_ms(lambda: T.run_encoder(cfg, params, ctx[:1]))
+            enc_launches = {n: counts()[n] - before[n] for n in PATH6}
+    err, base, dec = (pct(torch.cat(diffs[key]))
+                      for key in ("kernels", "floor", "decode"))
+    log(f"[{tag}] teacher-forced forward over prompt + {LM_NEW} served "
+        f"tokens of each stream ({sum(map(len, diffs['kernels']))} "
+        f"positions), per-position max |logit err| (max, p99, median): "
+        f"kernel path vs torch backend {tuple(round(x, 4) for x in err)}, "
+        f"argmax equal at {np.mean(diffs['agree']):.2%}; torch backend with "
+        f"128-key blocks vs torch (the noise floor) "
+        f"{tuple(round(x, 4) for x in base)}, argmax equal at "
+        f"{np.mean(diffs['floor_agree']):.2%}; each decode step's logits "
+        f"(batch {LM_SLOTS}, pos vector) vs the forward at the same position "
+        f"({sum(map(len, diffs['decode']))} positions) "
+        f"{tuple(round(x, 4) for x in dec)}; max |logit| "
+        f"{max(diffs['scale']):.3f}; tolerance: p99 and median at most "
+        f"{MOE_FLOOR_FACTOR:g}x the floor's or {LM_LOGIT_TOL:g}")
+    if not (within_floor(err, base) and within_floor(dec, base)):
+        raise AssertionError(f"{tag}: kernels vs torch {err}, decode vs "
+                             f"forward {dec}, noise floor {base}")
+    costs = step_costs(tag, cfg, params, prompts, uncounted, seq,
+                       cross_embeds=ctx[:1])
+    if cfg.enc_dec:
+        log(f"[{tag}] encoder alone over {ctx.shape[1]} frames (batch 1): "
+            f"{enc_ms:.3f} ms (host, synchronized, mean of 5) of the "
+            f"{costs['prefill_ms']:.3f} ms prefill; B7/B8 launches of the "
+            f"encoder {enc_launches} (its attention is the block scan)")
+        if any(enc_launches.values()):
+            raise AssertionError(f"{tag}: the encoder launched "
+                                 f"{enc_launches}")
+        costs["encoder_ms"] = enc_ms
+    # what decode_token_cost (the reference's arithmetic) counts and leaves
+    # out for these plans
+    kv_len = int(np.mean([len(p) for p in prompts])) + LM_NEW // 2 + 1
+    hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
+    cross_bytes = sum(leaf.numel() * leaf.element_size()
+                      for leaf in cross_leaves(T.init_cache(
+                          cfg, LM_SLOTS, 1, device="meta")))
+    enc_params = T.param_count(params.get("encoder", {}))
+    log(f"[{tag}] decode_token_cost counts estimate_param_count "
+        f"{info['estimate']} parameters (the tree holds {info['params']}"
+        + (f", {enc_params} of them in the encoder, which a decode step "
+           f"does not read" if enc_params else "")
+        + f") and kv_cache_bytes {kv_cache_bytes(cfg, kv_len, LM_SLOTS)} "
+        f"(self-attention K/V of {cfg.n_layers} layers at kv_len {kv_len}); "
+        f"it leaves out the cross K/V each step reads, {n_cross} layers x "
+        f"{LM_SLOTS} streams x {cfg.n_modality_tokens} rows x {KV} x {hd} "
+        f"x 2 (k, v): {cross_bytes} bytes, "
+        f"{cross_bytes / HBM_BPS * 1e3:.4f} ms at 3.35 TB/s")
+    flash, dec_routes = route_delta(before_routes)
+    if flash != {"wgmma": sum(flash.values()), "simt": 0} or \
+            dec_routes != {"mma": sum(dec_routes.values()), "simt": 0}:
+        raise AssertionError(f"{tag}: B7 by route {flash}, B8 {dec_routes}")
+    log(f"[{tag}] every B7 launch on the wgmma route, every B8 on mma "
+        f"(comparison runs included: B7 {flash}, B8 {dec_routes})")
+    del params
+    torch.cuda.empty_cache()
+    return dict(info, logit_err=dict(zip(("max", "p99", "median"), err)),
+                logit_noise_floor=dict(zip(("max", "p99", "median"), base)),
+                decode_vs_forward=dict(zip(("max", "p99", "median"), dec)),
+                b7_per_prefill=b7[0], b8_per_step=b8[0],
+                cross_kv_unchanged=kept, cross_kv_bytes=cross_bytes,
+                near_ties={b: t for b, t in ties.items() if t is not None},
+                flash_routes=flash, decode_routes=dec_routes, **costs)
+
+
+def train_launcher(arch):
+    """``launch/train`` at reduced size on the card for CROSS_TRAIN_STEPS
+    steps: its logged losses, each finite."""
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_train.main(["--arch", arch, "--steps", str(CROSS_TRAIN_STEPS),
+                           "--log-every", "1"])
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.getvalue().splitlines()
+              if line.startswith("step")]
+    log(f"[cross] launch/train --arch {arch} (reduced, on the card): "
+        f"losses {losses}")
+    if len(losses) != CROSS_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{arch}: train launcher losses {losses}")
+    return losses
+
+
+def phase11():
+    """The cross-attention / encoder-decoder path: (main-path launches,
+    summary)."""
+    for c in ops.counters().values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    uncounted = Uncounted()
+    vlm = phase_cross_model("vlm", VLM_ARCH, uncounted)
+    enc_dec = phase_cross_model("enc_dec", ENC_DEC_ARCH, uncounted)
+    train = {arch: train_launcher(arch) for arch in (VLM_ARCH, ENC_DEC_ARCH)}
+    path = {name: v - uncounted.n[name] for name, v in counts().items()}
+    peak = gib(torch.cuda.max_memory_allocated())
+    log(f"[cross] main-path launches {path} (comparison and measurement "
+        f"launches left out: {dict(uncounted.n)}); peak memory of the "
+        f"phase {peak:.2f} GiB")
+    missing = [name for name in PATH6 if path[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the cross-attention "
+                             f"/ encoder-decoder path: {missing}")
+    return path, dict(llama_vision=vlm, seamless=enc_dec,
+                      train_launcher=train, peak_gib=peak)
+
+
+def head_entry(row):
+    """A kernel's measurements at another model's heads (phase 2)."""
     return {"shape": row["shape"], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
@@ -2294,8 +2596,8 @@ def kernel_entry(name, row, launches, by_path):
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"], "shape": row["shape"],
             "launches_by_path": by_path,
-            **({"deepseek": deepseek_entry(row["deepseek"])}
-               if "deepseek" in row else {}),
+            **{key: head_entry(row[key]) for key, _ in HEAD_ROWS
+               if key in row},
             **{key: row[key] for key in (
                 "op_ms", "decode_one_ms", "library_device_ms",
                 "cold_device_ms", "empty_launch_device_ms",
@@ -2311,6 +2613,7 @@ PATH3 = ("flash_attention", "decode_attention")
 PATH4 = ("parity_encode", "parity_decode", "flash_attention",
          "decode_attention")
 PATH5 = ("flash_attention", "decode_attention")
+PATH6 = ("flash_attention", "decode_attention")
 
 
 def main():
@@ -2414,13 +2717,22 @@ def main():
     t10 = time.perf_counter()
     log(f"[time] phase 10 moe/ssm/hybrid: {t10 - t9:.1f} s")
 
+    # ---- path 6: cross-attention and encoder-decoder LM serving (phase
+    # 11), with phase 10's models freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    path6, cross = phase11()
+    t11 = time.perf_counter()
+    log(f"[time] phase 11 cross: {t11 - t10:.1f} s")
+
     kernels = []
     for name in ("parity_encode", "fused_encode_forward", "parity_decode",
                  "multigroup_decode", "learned_project", "berrut_encode",
                  "flash_attention", "decode_attention"):
         by_path = {"mlp_serving": path1[name], "schemes": path2[name],
                    "lm_serving": path3[name], "lm_training": path4[name],
-                   "moe_ssm_serving": path5[name]}
+                   "moe_ssm_serving": path5[name],
+                   "cross_serving": path6[name]}
         kernels.append(kernel_entry(name, rows[name], sum(by_path.values()),
                                     by_path))
     log(json.dumps({"summary": {
@@ -2438,6 +2750,7 @@ def main():
         "lm": lm,
         "lm_training": train,
         "moe_ssm_hybrid": hybrid,
+        "cross": cross,
         "seconds": time.perf_counter() - t0}}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))

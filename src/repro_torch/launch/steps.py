@@ -38,10 +38,12 @@ def n_params_of(shapes):
 
 def make_train_step(cfg, opt_cfg, microbatch=0):
     """train_step(params, opt_state, batch) -> (params, opt_state, loss),
-    the forward remat'd.  ``microbatch`` > 1 splits the global batch into
-    that many gradient-accumulation slices, the gradients and the loss
-    summed in fp32 over them: live activations and fp32 logit temporaries
-    shrink ~linearly at the cost of one forward per slice."""
+    the forward remat'd; ``batch`` as ``train_lib.make_train_step`` takes
+    it (tokens, and the context of a VLM or encoder-decoder plan).
+    ``microbatch`` > 1 splits the global batch into that many
+    gradient-accumulation slices, the gradients and the loss summed in fp32
+    over them: live activations and fp32 logit temporaries shrink ~linearly
+    at the cost of one forward per slice."""
     loss_fn = lm_loss_fn(cfg, remat=True)
 
     def train_step(params, opt_state, batch):

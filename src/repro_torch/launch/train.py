@@ -8,8 +8,11 @@ Markov LM stream, logs the loss, and optionally writes a checkpoint in the
 JAX package's ``.npz`` layout (``checkpoint/io.save``).  Runs on the card
 unless ``--device cpu``.  ``--microbatch`` is parsed and, as in the JAX
 package's launcher, unused: every step is ``train_lib.make_train_step`` without
-remat (gradient accumulation is ``launch.steps.make_train_step``).  Dense
-decoder stacks only (the port's ``transformer`` raises for the others).
+remat (gradient accumulation is ``launch.steps.make_train_step``).  A VLM's
+batches carry stub patch embeddings (``cross_embeds`` [batch,
+n_modality_tokens, d_model]) and an encoder-decoder's stub frame embeddings
+(``frames`` [batch, seq, d_model]), 0.02 N(0, 1) drawn on the device from a
+generator seeded by the step index, as the reference draws them.
 """
 from __future__ import annotations
 
@@ -26,6 +29,13 @@ from repro_torch.launch.steps import n_params_of, param_shapes
 from repro_torch.models import transformer as T
 from repro_torch.training.optim import AdamConfig, adam_init
 from repro_torch.training.train_lib import make_train_step
+
+
+def _stub(device, step, shape):
+    """Stub modality embeddings for one step: 0.02 N(0, 1) from a generator
+    seeded by the step index."""
+    gen = torch.Generator(device=device).manual_seed(step)
+    return 0.02 * torch.randn(shape, generator=gen, device=device)
 
 
 def main(argv=None):
@@ -57,6 +67,12 @@ def main(argv=None):
     for i in range(args.steps):
         batch = {"tokens": torch.as_tensor(data[i][:, :args.seq],
                                            device=dev)}
+        if cfg.family == "vlm":
+            batch["cross_embeds"] = _stub(
+                dev, i, (args.batch, cfg.n_modality_tokens, cfg.d_model))
+        if cfg.enc_dec:
+            batch["frames"] = _stub(dev, i, (args.batch, args.seq,
+                                             cfg.d_model))
         params, opt_state, m = step(params, opt_state, batch)
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"step {i:4d} loss={float(m['loss']):.4f} "

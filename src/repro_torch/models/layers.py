@@ -1,5 +1,5 @@
-"""Core transformer layers: norms, RoPE, GQA attention (prefill / decode),
-SwiGLU MLP — the dense-stack half of the JAX package's ``models/layers.py``.
+"""Core transformer layers: norms, RoPE, GQA attention (prefill / decode,
+cross attention), the MLP — the JAX package's ``models/layers.py``.
 
 All functions take plain dict trees of tensors, with the JAX package's
 layouts (dense weights [in, out]).  Attention routes by ``backend`` (default
@@ -13,9 +13,12 @@ layouts (dense weights [in, out]).  Attention routes by ``backend`` (default
   with the JAX package's custom VJP) and ``attention_decode_xla``, twins of
   the JAX package's "jnp" paths.  Training differentiates this path only.
 
-Cross attention and the sharding constraints are not ported: the port runs
-decoder-only stacks on one card (cross attention: ``ROADMAP.md`` A5; the
-MoE and Mamba2 layers are ``models/moe.py`` and ``models/mamba.py``).
+Cross attention (to modality embeddings or their cached K/V) and the
+encoder's bidirectional attention take the non-causal block scan on both
+backends, as in the reference, whose flash kernel covers causal self
+attention only.  The sharding constraints are not ported: the port runs on
+one card (the MoE and Mamba2 layers are ``models/moe.py`` and
+``models/mamba.py``).
 
 Decode writes the new key/value row into the cache IN PLACE (the JAX
 package rebinds an immutable pool): callers that need the old cache clone
@@ -271,7 +274,9 @@ def _dense(gen, shape, dtype, device, lead=()):
     return (w / math.sqrt(shape[0])).to(dtype)
 
 
-def init_attention(cfg, gen, *, device="cpu", lead=()):
+def init_attention(cfg, gen, cross=False, *, device="cpu", lead=()):
+    """Attention parameters; ``cross`` adds the ``cross_norm`` scale that
+    the cross-attention branch normalises its input with."""
     D, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     dt = torch_dtype(cfg)
@@ -294,6 +299,8 @@ def init_attention(cfg, gen, *, device="cpu", lead=()):
             zeros(KV * hd)
     if cfg.qk_norm:
         p["q_norm"], p["k_norm"] = ones(hd), ones(hd)
+    if cross:
+        p["cross_norm"] = make_norm(cfg, D, device=device, lead=lead)
     return p
 
 
@@ -335,6 +342,26 @@ def self_attention_fwd(cfg, p, x, rope_cs, *, window=0, q_offset=0,
                                 q_offset=q_offset)
     B, S, H, hd = o.shape
     return o.reshape(B, S, H * hd) @ p["wo"], (k, v)
+
+
+def cross_attention_fwd(cfg, p, x, kv_or_embeds, *, from_cache=False):
+    """Cross attention to modality embeddings [B, S_ctx, D] (or, with
+    ``from_cache``, to their cached (k, v) [B, S_ctx, KV, hd]): no RoPE, no
+    mask.  Returns (out, (k, v))."""
+    if from_cache:
+        B, Sq, _ = x.shape
+        q = x @ p["wq"]
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        q = q.reshape(B, Sq, cfg.n_heads, cfg.resolved_head_dim)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+        k, v = kv_or_embeds
+    else:
+        q, k, v = _qkv(cfg, p, x, kv_or_embeds)
+    o = flash_attention_xla(q, k, v, causal=False)
+    B, Sq, H, hd = o.shape
+    return o.reshape(B, Sq, H * hd) @ p["wo"], (k, v)
 
 
 def self_attention_decode(cfg, p, x, cache, pos, rope_cs, *, window=0,

@@ -1,6 +1,7 @@
-"""Model assembly for decoder-only stacks — the JAX package's
-``models/transformer.py`` for every plan without cross attention: dense,
-MoE, SSM (Mamba2) and hybrid (Jamba) stacks.
+"""Model assembly for every layer plan of the JAX package's
+``models/transformer.py``: dense, MoE, SSM (Mamba2) and hybrid (Jamba)
+decoder stacks, the VLM's cross-attention layers (llama-3.2-vision) and the
+encoder-decoder plan (seamless-m4t).
 
 A model is a stack of ``n_layers`` layers with a repeating superblock of
 length ``cfg.period``.  As in the reference, the parameters of the
@@ -8,23 +9,30 @@ superblocks are stacked along a leading "group" axis: ``params["blocks"]``
 is a tuple with one dict per layer of the period, and every leaf carries a
 leading ``n_groups`` axis, so a JAX parameter or cache tree carried over by
 ``convert.params_from_numpy`` is a tree of this module.  ``jax.lax.scan``
-over the groups becomes a Python loop over that axis.
+over the groups becomes a Python loop over that axis.  An encoder-decoder
+model also holds ``params["encoder"] = {"blocks", "final_norm"}``, the same
+layout over ``n_enc_layers // period`` groups.
 
-Each layer of the period is a spec of ``layer_plan``: a mixer (``attn`` or
-``mamba``) and an FFN (``mlp``, ``moe`` or none), with the reference's
-per-spec parameter keys.
+Each layer of the period is a spec of ``layer_plan``: a mixer (``attn``,
+``mamba``, or ``none`` for the VLM's cross-attention layer), whether it
+cross-attends, an FFN (``mlp``, ``moe`` or none), and whether its attention
+is causal (the encoder's is not), with the reference's per-spec parameter
+keys.  Cross attention reads ``cross_embeds``: the stub patch embeddings
+[B, n_ctx, D] of a VLM, or the encoder's output over the stub frame
+embeddings [B, S_src, D] that an encoder-decoder model takes in their place
+(``run_encoder``).  Cross attention and the encoder's bidirectional
+attention run the non-causal block scan on both backends, as in the
+reference.
 
 Three entry points per model:
   * ``forward``      — full-sequence teacher-forced logits and the MoE
                        router loss summed over layers
   * ``prefill``      — full-sequence + returns per-layer KV / SSM caches
+                       and the cross-attention K/V of the context
   * ``decode_step``  — one token through the cached stack (serving decode;
                        writes the key/value rows, SSM states and conv tails
-                       into the caches in place)
-
-Plans with cross-attention or encoder-decoder layers (llama-3.2-vision,
-seamless-m4t) raise ``NotImplementedError``: they come in a later slice
-(``ROADMAP.md`` A5).
+                       into the caches in place, and only reads the cross
+                       K/V)
 """
 from __future__ import annotations
 
@@ -72,30 +80,20 @@ def layer_plan(cfg, role="decoder"):
     return tuple(plan)
 
 
-def _plan(cfg):
-    """The layer plan, or NotImplementedError for what the port lacks."""
-    plan = layer_plan(cfg)
-    if cfg.enc_dec or any(spec["cross"] or spec["mixer"] == "none"
-                          for spec in plan):
-        what = "encoder-decoder" if cfg.enc_dec else "cross-attention"
-        raise NotImplementedError(
-            f"{cfg.name}: {what} layers are not ported yet (ROADMAP.md A5); "
-            f"the port runs decoder-only stacks")
-    return plan
-
-
 # --------------------------------------------------------------------------
 # Init
 # --------------------------------------------------------------------------
 def init_layer(cfg, gen, spec, *, device="cpu", lead=()):
-    """One layer of the period: {"attn" | "mamba", "mlp" | "moe"} as the
-    spec says (``lead`` prepends the stacked group axis)."""
+    """One layer of the period: {"attn" | "mamba", "cross", "mlp" | "moe"}
+    as the spec says (``lead`` prepends the stacked group axis)."""
     kw = dict(device=device, lead=lead)
     p = {}
     if spec["mixer"] == "attn":
         p["attn"] = L.init_attention(cfg, gen, **kw)
     elif spec["mixer"] == "mamba":
         p["mamba"] = M.init_mamba(cfg, gen, **kw)
+    if spec["cross"]:
+        p["cross"] = L.init_attention(cfg, gen, cross=True, **kw)
     if spec["ffn"] == "mlp":
         p["mlp"] = L.init_mlp(cfg, gen, **kw)
     elif spec["ffn"] == "moe":
@@ -113,7 +111,6 @@ def init_params(cfg, seed=0, *, device="cuda"):
     the shapes and dtypes and allocates nothing.  The leaves do not require
     grad: a train step turns that on for the leaves it trains."""
     dev = resolve_device(device)
-    plan = _plan(cfg)
     if dev.type == "meta":
         gen = None                    # a meta tensor holds no draws
     elif isinstance(seed, torch.Generator):
@@ -124,13 +121,29 @@ def init_params(cfg, seed=0, *, device="cuda"):
     D, V = cfg.d_model, cfg.vocab
     p = {"embed": (torch.randn((V, D), generator=gen, device=dev)
                    * 0.02).to(dt)}
-    p["blocks"] = tuple(init_layer(cfg, gen, spec, device=dev,
-                                   lead=(cfg.n_groups,)) for spec in plan)
+    p["blocks"] = _init_stack(cfg, gen, cfg.n_groups, layer_plan(cfg), dev)
     p["final_norm"] = L.make_norm(cfg, D, device=dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = (torch.randn((D, V), generator=gen, device=dev)
                         / math.sqrt(D)).to(dt)
+    if cfg.enc_dec:
+        p["encoder"] = {
+            "blocks": _init_stack(cfg, gen, _n_enc_groups(cfg),
+                                  layer_plan(cfg, role="encoder"), dev),
+            "final_norm": L.make_norm(cfg, D, device=dev)}
     return p
+
+
+def _init_stack(cfg, gen, n_groups, plan, device):
+    return tuple(init_layer(cfg, gen, spec, device=device, lead=(n_groups,))
+                 for spec in plan)
+
+
+def _n_enc_groups(cfg):
+    if cfg.n_enc_layers % cfg.period:
+        raise ValueError(f"{cfg.name}: {cfg.n_enc_layers} encoder layers do "
+                         f"not split into periods of {cfg.period}")
+    return cfg.n_enc_layers // cfg.period
 
 
 # --------------------------------------------------------------------------
@@ -139,14 +152,18 @@ def init_params(cfg, seed=0, *, device="cuda"):
 def _layer_fwd(cfg, spec, p, x, ctx):
     """Full-sequence layer. Returns (x, aux, cache_entry): aux is the MoE
     router loss (a python 0.0 without MoE, which launches nothing), the
-    cache entry {"attn": {"k", "v"}} or {"ssm": {"ssm", "conv"}} when
+    cache entry {"attn": {"k", "v"}} or {"ssm": {"ssm", "conv"}}, and
+    {"cross": {"k", "v"}} for a cross-attending layer, when
     ``ctx["collect_cache"]``."""
     aux = 0.0
     cache = {}
     if spec["mixer"] == "attn":
         h = L.apply_norm(cfg, p["attn"]["norm"], x)
-        o, (k, v) = L.self_attention_fwd(cfg, p["attn"], h, ctx["rope"],
-                                         window=ctx["window"])
+        if spec["causal"]:
+            o, (k, v) = L.self_attention_fwd(cfg, p["attn"], h, ctx["rope"],
+                                             window=ctx["window"])
+        else:
+            o, (k, v) = _bidir_attn(cfg, p["attn"], h, ctx)
         x = x + o
         if ctx["collect_cache"]:
             W = ctx["window"]
@@ -164,6 +181,13 @@ def _layer_fwd(cfg, spec, p, x, ctx):
         x = x + o
         if ctx["collect_cache"]:
             cache["ssm"] = state
+    if spec["cross"]:
+        h = L.apply_norm(cfg, p["cross"]["cross_norm"], x)
+        o, (ck, cv) = L.cross_attention_fwd(cfg, p["cross"], h,
+                                            ctx["cross_embeds"])
+        x = x + o
+        if ctx["collect_cache"]:
+            cache["cross"] = {"k": ck, "v": cv}
     if spec["ffn"] == "mlp":
         h = L.apply_norm(cfg, p["mlp"]["norm"], x)
         x = x + L.mlp_fwd(cfg, p["mlp"], h)
@@ -172,6 +196,18 @@ def _layer_fwd(cfg, spec, p, x, ctx):
         o, aux = MOE.moe_fwd(cfg, p["moe"], h)
         x = x + o
     return x, aux, cache
+
+
+def _bidir_attn(cfg, p, h, ctx):
+    """The encoder's self attention: RoPE on the frame positions, no mask
+    (the block scan on both backends)."""
+    q, k, v = L._qkv(cfg, p, h, h)
+    cos, sin = ctx["rope"]
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    o = L.flash_attention_xla(q, k, v, causal=False)
+    B, S, H, hd = o.shape
+    return o.reshape(B, S, H * hd) @ p["wo"], (k, v)
 
 
 def _group(tree, g):
@@ -189,13 +225,15 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _stack_fwd(cfg, stacked, x, ctx, plan, remat=False):
-    """Python loop over the groups; returns x, the aux loss summed over
-    layers and groups and, when collecting, the caches stacked along a
-    leading group axis as the reference's scan stacks them.  ``remat``
-    checkpoints each group (the reference's ``jax.checkpoint`` of the scan
-    body): its activations are recomputed in the backward pass instead of
-    kept."""
+def _stack_fwd(cfg, stacked, x, ctx, plan, remat=False, n_groups=None):
+    """Python loop over the ``n_groups`` groups (default ``cfg.n_groups``);
+    returns x, the aux loss summed over layers and groups and, when
+    collecting, the caches stacked along a leading group axis as the
+    reference's scan stacks them.  ``remat`` checkpoints each group (the
+    reference's ``jax.checkpoint`` of the scan body): its activations are
+    recomputed in the backward pass instead of kept.  The context in
+    ``ctx`` (an encoder's output) is not an argument of the checkpoint; the
+    non-reentrant checkpoint carries its gradient all the same."""
     def group(x, g):
         aux = 0.0
         caches = []
@@ -207,7 +245,7 @@ def _stack_fwd(cfg, stacked, x, ctx, plan, remat=False):
 
     aux = 0.0
     per_group = []
-    for g in range(cfg.n_groups):
+    for g in range(n_groups or cfg.n_groups):
         if remat:
             x, a, caches = checkpoint(group, x, g, use_reentrant=False)
         else:
@@ -222,8 +260,8 @@ def _stack_fwd(cfg, stacked, x, ctx, plan, remat=False):
 
 def _stack_decode(cfg, stacked, caches, x, pos, ctx, plan):
     """One token through every layer; key/value rows, SSM states and conv
-    tails are written into ``caches`` in place.  The MoE aux is dropped, as
-    in the reference's decode."""
+    tails are written into ``caches`` in place, the cross-attention K/V are
+    only read.  The MoE aux is dropped, as in the reference's decode."""
     for g in range(cfg.n_groups):
         for i, spec in enumerate(plan):
             p = _group(stacked[i], g)
@@ -241,6 +279,12 @@ def _stack_decode(cfg, stacked, caches, x, pos, ctx, plan):
                 for name in ("ssm", "conv"):
                     cache[name].copy_(new[name])
                 x = x + o
+            if spec["cross"]:
+                h = L.apply_norm(cfg, p["cross"]["cross_norm"], x)
+                kv = _group(caches[i]["cross"], g)
+                x = x + L.cross_attention_fwd(cfg, p["cross"], h,
+                                              (kv["k"], kv["v"]),
+                                              from_cache=True)[0]
             if spec["ffn"] == "mlp":
                 h = L.apply_norm(cfg, p["mlp"]["norm"], x)
                 x = x + L.mlp_fwd(cfg, p["mlp"], h)
@@ -283,26 +327,57 @@ def _rope(cfg, pos):
         pos, cfg.resolved_head_dim, cfg.rope_theta))
 
 
-def _make_ctx(cfg, S, device, *, collect_cache=False, cache_len=0):
+def _make_ctx(cfg, S, device, *, cross_embeds=None, collect_cache=False,
+              cache_len=0):
     pos = torch.arange(S, device=device)
-    return {"rope": _rope(cfg, pos),
-            "window": cfg.sliding_window, "collect_cache": collect_cache,
+    return {"rope": _rope(cfg, pos), "window": cfg.sliding_window,
+            "cross_embeds": cross_embeds, "collect_cache": collect_cache,
             "cache_len": cache_len}
 
 
-def forward(cfg, params, tokens=None, embeds=None, remat=False,
-            unembed_last_only=False):
+def run_encoder(cfg, params, frames):
+    """The encoder over stub frame embeddings [B, S_src, D]: bidirectional
+    layers with RoPE on the frame positions, then its final norm."""
+    x = frames.to(L.torch_dtype(cfg))
+    ctx = _make_ctx(cfg, x.shape[1], x.device)
+    x, _, _ = _stack_fwd(cfg, params["encoder"]["blocks"], x, ctx,
+                         layer_plan(cfg, role="encoder"),
+                         n_groups=_n_enc_groups(cfg))
+    return L.apply_norm(cfg, params["encoder"]["final_norm"], x)
+
+
+def _context(cfg, params, cross_embeds):
+    """What the cross-attention layers attend to: the encoder's output over
+    ``cross_embeds`` (the frames) for an encoder-decoder model, else the
+    embeddings themselves in the model dtype (torch's matmul does not
+    promote a float32 context against bf16 weights as jnp's does)."""
+    if cross_embeds is None:
+        if cfg.enc_dec or cfg.cross_attn_every:
+            raise ValueError(f"{cfg.name}: cross-attention layers need "
+                             f"cross_embeds (patch or frame embeddings "
+                             f"[B, S_ctx, {cfg.d_model}])")
+        return None
+    if cfg.enc_dec:
+        return run_encoder(cfg, params, cross_embeds)
+    return cross_embeds.to(L.torch_dtype(cfg))
+
+
+def forward(cfg, params, tokens=None, embeds=None, cross_embeds=None,
+            remat=False, unembed_last_only=False):
     """Teacher-forced full-sequence logits. Returns (logits_f32, aux); aux is
     the MoE router loss summed over layers and groups (0 without MoE).
 
-    ``remat`` recomputes each group's activations in the backward pass
-    (training); ``unembed_last_only`` skips the [B, S, V] unembed and
-    projects only the final position — the serving prefill only consumes
-    the last token."""
-    plan = _plan(cfg)
+    ``cross_embeds`` is the context of a cross-attending plan: patch
+    embeddings [B, n_ctx, D] (VLM) or frame embeddings [B, S_src, D] that
+    the encoder runs over first (encoder-decoder).  ``remat`` recomputes
+    each group's activations in the backward pass (training);
+    ``unembed_last_only`` skips the [B, S, V] unembed and projects only the
+    final position — the serving prefill only consumes the last token."""
+    context = _context(cfg, params, cross_embeds)
     x = _embed(cfg, params, tokens, embeds)
-    ctx = _make_ctx(cfg, x.shape[1], x.device)
-    x, aux, _ = _stack_fwd(cfg, params["blocks"], x, ctx, plan, remat=remat)
+    ctx = _make_ctx(cfg, x.shape[1], x.device, cross_embeds=context)
+    x, aux, _ = _stack_fwd(cfg, params["blocks"], x, ctx, layer_plan(cfg),
+                           remat=remat)
     if unembed_last_only:
         x = x[:, -1:]
     if not isinstance(aux, torch.Tensor):          # no MoE layer
@@ -310,19 +385,22 @@ def forward(cfg, params, tokens=None, embeds=None, remat=False,
     return _logits(cfg, params, x), aux
 
 
-def prefill(cfg, params, tokens=None, embeds=None, cache_len=0):
+def prefill(cfg, params, tokens=None, embeds=None, cross_embeds=None,
+            cache_len=0):
     """Process the prompt; returns (last-token logits_f32, cache).
 
     ``cache_len`` reserves decode slots (>= prompt length, or == window for
-    sliding-window archs)."""
-    plan = _plan(cfg)
+    sliding-window archs).  ``cross_embeds`` as in :func:`forward`; the
+    cross-attention layers' cache entries hold the context's K/V, as many
+    rows as the context has (the encoder's output: the frames')."""
+    context = _context(cfg, params, cross_embeds)
     x = _embed(cfg, params, tokens, embeds)
     S = x.shape[1]
     if not cache_len:
         cache_len = min(S, cfg.sliding_window) if cfg.sliding_window else S
-    ctx = _make_ctx(cfg, S, x.device, collect_cache=True,
-                    cache_len=cache_len)
-    x, _, caches = _stack_fwd(cfg, params["blocks"], x, ctx, plan)
+    ctx = _make_ctx(cfg, S, x.device, cross_embeds=context,
+                    collect_cache=True, cache_len=cache_len)
+    x, _, caches = _stack_fwd(cfg, params["blocks"], x, ctx, layer_plan(cfg))
     return _logits(cfg, params, x[:, -1:]), caches
 
 
@@ -339,8 +417,10 @@ def decode_step(cfg, params, cache, pos, token=None, embed=None):
     ``pos`` is converted once per step, not once per layer: a python int
     (scalar) or an int64 device tensor (vector) for RoPE and the slot
     writes, and, on the "kernels" backend, one [B] int32 device tensor that
-    every layer's decode-attention kernel reads as it is."""
-    plan = _plan(cfg)
+    every layer's decode-attention kernel reads as it is.  Cross-attending
+    layers read the context's K/V from the cache (made by ``prefill`` or
+    ``init_cache``) and leave them as they are."""
+    plan = layer_plan(cfg)
     x = _embed(cfg, params, token, embed)
     B = x.shape[0]
     kernels = cfg.attn_backend == "kernels" and any(
@@ -365,16 +445,27 @@ def init_cache(cfg, batch, cache_len, *, device="cuda"):
     """Zero caches: a tuple with one dict per layer of the period,
     {"attn": {"k", "v"}} (leaves [n_groups, batch, S, KV, hd]) for an
     attention layer, {"ssm": {"ssm", "conv"}} (leaves [n_groups, batch, H,
-    N, P] fp32 and [n_groups, batch, W-1, conv_dim]) for a mamba layer."""
+    N, P] fp32 and [n_groups, batch, W-1, conv_dim]) for a mamba layer, and
+    {"cross": {"k", "v"}} (leaves [n_groups, batch, n_modality_tokens or 1,
+    KV, hd]) for a cross-attending layer, which is all a VLM's
+    cross-attention layer (mixer "none") holds."""
     dev = resolve_device(device)
     lead = (cfg.n_groups,)
 
     def one_layer(spec):
+        c = {}
         if spec["mixer"] == "attn":
-            return {"attn": L.init_attn_cache(cfg, batch, cache_len,
-                                              device=dev, lead=lead)}
-        return {"ssm": M.init_ssm_cache(cfg, batch, device=dev, lead=lead)}
-    return tuple(one_layer(spec) for spec in _plan(cfg))
+            c["attn"] = L.init_attn_cache(cfg, batch, cache_len, device=dev,
+                                          lead=lead)
+        elif spec["mixer"] == "mamba":
+            c["ssm"] = M.init_ssm_cache(cfg, batch, device=dev, lead=lead)
+        if spec["cross"]:
+            shape = lead + (batch, cfg.n_modality_tokens or 1,
+                            cfg.n_kv_heads, cfg.resolved_head_dim)
+            c["cross"] = {name: torch.zeros(shape, dtype=L.torch_dtype(cfg),
+                                            device=dev) for name in "kv"}
+        return c
+    return tuple(one_layer(spec) for spec in layer_plan(cfg))
 
 
 def param_count(params):

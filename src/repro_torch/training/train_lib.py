@@ -18,9 +18,11 @@ its "jnp" scan.  The flash kernel (B7) has no backward and
 ``kernels.ops.flash_attention_op`` raises when asked for a gradient; teacher
 forwards under ``no_grad`` may still run it.
 
-Dense decoder stacks only: the port's ``transformer.forward`` raises for the
-VLM and encoder-decoder plans whose batches carry ``cross_embeds`` /
-``frames`` in the reference.
+The next-token loss takes every layer plan: a VLM's batch carries its
+patch embeddings as ``cross_embeds``, an encoder-decoder's its frame
+embeddings as ``frames``, and both reach ``transformer.forward`` as the
+reference's loss routes them.  The parity and joint steps pass no context,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -39,12 +41,16 @@ def grad_cfg(cfg):
 
 def value_and_grad(loss_fn, params, *args):
     """(loss, grads): ``loss_fn(params, *args)`` and its gradient w.r.t.
-    every leaf of ``params`` (a list in ``tree_leaves`` order)."""
+    every leaf of ``params`` (a list in ``tree_leaves`` order).  A leaf the
+    loss does not reach (a cross-attention layer's unused ``norm``, as in
+    the reference) gets zeros, as ``jax.grad`` gives it."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     loss = loss_fn(params, *args)
-    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
 
 
 def _step(loss_fn, opt_cfg):
@@ -55,14 +61,27 @@ def _step(loss_fn, opt_cfg):
     return step
 
 
+def _context_kw(cfg, batch, device):
+    """``forward``'s context argument from a batch, as the reference's loss
+    routes it: {"cross_embeds": batch["cross_embeds"]} for a VLM,
+    {"cross_embeds": batch["frames"]} for an encoder-decoder model, {} for
+    the rest."""
+    key = "frames" if cfg.enc_dec else \
+        "cross_embeds" if cfg.family == "vlm" else None
+    return {"cross_embeds": as_tensor(batch[key], device)} if key else {}
+
+
 def lm_loss_fn(cfg, remat):
     """loss_fn(params, batch): the shifted next-token loss of
-    ``batch["tokens"]`` [B, S], differentiable."""
+    ``batch["tokens"]`` [B, S], differentiable; ``batch`` also holds
+    ``cross_embeds`` [B, n_ctx, D] (VLM) or ``frames`` [B, S_src, D]
+    (encoder-decoder)."""
     fcfg = grad_cfg(cfg)
 
     def loss_fn(params, batch):
         logits, aux = T.forward(fcfg, params, tokens=batch["tokens"],
-                                remat=remat)
+                                remat=remat, **_context_kw(
+                                    cfg, batch, params["embed"].device))
         tokens = torch.as_tensor(batch["tokens"], device=logits.device)
         return lm_loss(logits, tokens, aux, cfg.router_aux_coef)
     return loss_fn
@@ -71,7 +90,9 @@ def lm_loss_fn(cfg, remat):
 def make_train_step(cfg, opt_cfg: AdamConfig, remat=True):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
-    ``batch`` = {"tokens": [B, S] int}."""
+    ``batch`` = {"tokens": [B, S] int} plus, per family,
+    "cross_embeds": [B, n_modality_tokens, D] (vlm) or
+    "frames": [B, S_src, D] (audio enc-dec)."""
     return _step(lm_loss_fn(cfg, remat), opt_cfg)
 
 

@@ -561,3 +561,85 @@ def test_reduced_hybrid_models_on_the_card_match_the_cpu(cuda, arch):
     assert cnt["decode_attention"].value == before[1] + 2 * n_attn
     for a, b in zip(out["cuda"], out["cpu"]):
         _close(a.cpu(), b, 2e-4, 2e-4)
+
+
+# --------------------------------------------------------------------------
+# the cross-attention and encoder-decoder plans, and B7 / B8 at their heads:
+# llama-3.2-vision-11b (32 heads over 8 KV heads, rep 4, head_dim 128) and
+# seamless-m4t-medium (16 over 16, head_dim 64)
+# --------------------------------------------------------------------------
+CROSS_HEADS = [(32, 8, 128), (16, 16, 64)]
+
+
+@pytest.mark.parametrize("H,KV,hd", CROSS_HEADS)
+def test_flash_attention_at_cross_path_heads(cuda, H, KV, hd):
+    """B7 on the tensor-core route at q [1, 256, H, hd], k/v [1, 256, KV,
+    hd] bf16, causal."""
+    from repro_torch.kernels import flash_attention as kf
+    q = torch.randn((1, 256, H, hd), generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn((1, 256, KV, hd), generator=cuda,
+                        device="cuda").bfloat16() for _ in range(2))
+    before = kf.route_launches["wgmma"].value
+    got = ops.flash_attention_op(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kf.route_launches["wgmma"].value == before + 1
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True), 3e-2, 0.0)
+
+
+@pytest.mark.parametrize("H,KV,hd,S,pos", [
+    (32, 8, 128, 1280, [300, 1279, 517, 0]),
+    (16, 16, 64, 512, [37, 511, 270, 100])])
+def test_decode_attention_at_cross_path_heads(cuda, H, KV, hd, S, pos):
+    """B8 on the mma route at the serving pools of the cross path: q [4, H,
+    hd], caches [4, S, KV, hd] bf16, per-row positions."""
+    from repro_torch.kernels import decode_attention as kd
+    q = torch.randn((4, H, hd), generator=cuda, device="cuda").bfloat16()
+    kc, vc = (torch.randn((4, S, KV, hd), generator=cuda,
+                          device="cuda").bfloat16() for _ in range(2))
+    before = kd.route_launches["mma"].value
+    got = ops.decode_attention_op(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert kd.route_launches["mma"].value == before + 1
+    _close(got, ref.decode_attention_ref(q, kc, vc, pos), 3e-2, 0.0)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_reduced_cross_models_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced VLM and encoder-decoder models in fp32: forward logits,
+    prefill (cross K/V included), and two vector-pos decode steps on the
+    card against the same parameters and context on the CPU, within 2e-4;
+    B7 and B8 launch only for the decoder's causal self attention (none
+    for cross attention or the encoder)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch, reduced=True)
+    params = T.init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (3, 20), generator=gen)
+    n_ctx = 20 if cfg.enc_dec else cfg.n_modality_tokens
+    ctx = 0.5 * torch.randn((3, n_ctx, cfg.d_model), generator=gen)
+    cnt = ops.counters()
+    before = (cnt["flash_attention"].value, cnt["decode_attention"].value)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda x: x.to(dev), params)
+        t, c = toks.to(dev), ctx.to(dev)
+        with torch.inference_mode():
+            full, _ = T.forward(cfg, p, tokens=t, cross_embeds=c)
+            last, cache = T.prefill(cfg, p, tokens=t[:, :12], cross_embeds=c,
+                                    cache_len=24)
+            steps = []
+            for j in range(2):
+                pos = torch.tensor([12, 12, 12], device=dev) + j
+                logits, cache = T.decode_step(cfg, p, cache, pos,
+                                              token=t[:, 12 + j:13 + j])
+                steps.append(logits)
+        out[dev] = [full, last, *steps, *tree_leaves(cache)]
+    n_attn = sum(s["mixer"] == "attn" for s in T.layer_plan(cfg)) * \
+        cfg.n_groups
+    assert cnt["flash_attention"].value == before[0] + 2 * n_attn
+    assert cnt["decode_attention"].value == before[1] + 2 * n_attn
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _close(a.cpu(), b, 2e-4, 2e-4)

@@ -62,11 +62,6 @@ def test_pick_opt_config_switches_to_bf16_moments():
     assert tsteps.pick_opt_config(cfg, 4e9).moment_dtype == "float32"
 
 
-def test_param_shapes_raise_for_plans_not_ported():
-    with pytest.raises(NotImplementedError):
-        tsteps.param_shapes(tbase.get_config("llama-3.2-vision-11b"))
-
-
 @pytest.mark.parametrize("microbatch", [0, 2])
 def test_launcher_train_step_equals_reference(microbatch):
     jcfg = jbase.get_config("qwen2-0.5b", reduced=True)

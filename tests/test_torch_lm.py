@@ -587,18 +587,6 @@ def test_init_params_layout_and_count(qwen):
         jax.tree.map(lambda a: a.shape, jcache)
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
-                                  "seamless-m4t-medium"])
-def test_other_plans_raise_not_implemented(arch):
-    """The cross-attention and encoder-decoder plans are not ported yet
-    (the MoE, SSM and hybrid plans are: ``test_torch_hybrid_lm.py``)."""
-    cfg = tbase.get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        T.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        T.init_cache(cfg, 1, 8, device="cpu")
-
-
 @pytest.mark.parametrize("backend", ["kernels", "torch"])
 @pytest.mark.parametrize("window", [0, 6])
 def test_prefill_decode_forward_match_reference(qwen, backend, window):
@@ -691,7 +679,7 @@ def _decode_step_pos_per_layer(cfg, params, cache, pos, token):
         rope = T._rope(cfg, pos)
     ctx = {"rope": rope, "window": cfg.sliding_window, "kernel_pos": None}
     x = T._stack_decode(cfg, params["blocks"], cache, x, pos, ctx,
-                        T._plan(cfg))
+                        T.layer_plan(cfg))
     return T._logits(cfg, params, x), cache
 
 
