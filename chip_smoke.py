@@ -70,17 +70,28 @@ Phases, in order; any failure exits non-zero:
                forward beside the torch backend's own noise floor, B7/B8
                launches per prefill and step, the cross K/V unchanged by
                decode, the decode step's costs, the prefill (and encoder)
-               time; then ``launch/train`` for both at reduced size.
+               time; then ``launch/train`` for both at reduced size;
+12. distributed — phase 8's qwen2-0.5b again, on a (1, 1) ("data",
+               "model") ``DeviceMesh`` over a one-rank NCCL group with the
+               launcher's logical rules active: ``launch.steps``' prefill
+               step bit-equal to ``T.prefill`` without rules (24 B7
+               launches per prefill), its decode step (24 B8 launches per
+               step) giving phase 8's loop tokens, the coded-serve step in
+               both flavours (k=2) held to each other within phase 8's bf16
+               rule, and ``deploy_lm`` with ``GenerationSpec(mesh=...)``
+               serving phase 8's requests with phase 8's tokens; then the
+               host-only dry run of two full-size pairs on a (16, 16) mesh
+               (``launch.dryrun.run_pair``) on this machine's torch.
 
 ``python3 chip_smoke.py --distil-lrs 1e-4,1e-3`` runs phase 9's
 distillation alone at each learning rate and prints no result line.
 
-The launch counters are zeroed before each of the six paths (phases 3-4, the
-coded MLP serving path; phases 5-7, the scheme registry's path; phase 8, coded
-LM serving; phase 9, LM parity training and serving the trained model; phase
-10, MoE / SSM / hybrid LM serving; phase 11, cross-attention and
-encoder-decoder LM serving) and read after it; every kernel of a path must
-have run on it.
+The launch counters are zeroed before each of the seven paths (phases 3-4,
+the coded MLP serving path; phases 5-7, the scheme registry's path; phase 8,
+coded LM serving; phase 9, LM parity training and serving the trained model;
+phase 10, MoE / SSM / hybrid LM serving; phase 11, cross-attention and
+encoder-decoder LM serving; phase 12, the launch steps on a device mesh) and
+read after it; every kernel of a path must have run on it.
 Launches made only to compare a kernel path with its plain twin are not
 counted.  The last two lines of
 standard output are a ``{"kernels": [...]}`` JSON object and the
@@ -126,7 +137,12 @@ from repro_torch.kernels import learned_encoder as k_proj  # noqa: E402
 from repro_torch.kernels import multigroup_decode as k_mg  # noqa: E402
 from repro_torch.kernels import parity_decode as k_dec  # noqa: E402
 from repro_torch.kernels import parity_encode as k_enc  # noqa: E402
+from repro_torch.distributed.logical import (  # noqa: E402
+    logical_rules, rules_for_mesh)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import steps as launch_steps  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
     decode_token_cost, estimate_param_count, kv_cache_bytes)
@@ -1335,13 +1351,13 @@ def lm_teacher_forced(cfg, params, prompt, cont):
 
 
 def lm_serve(cfg, params, prompts, straggle_ms, delay_fn=None,
-             parity_params=None):
+             parity_params=None, mesh=None):
     spec = GenerationSpec(
         cfg=cfg, params=params, parity_params=parity_params, k=K, r=1,
         scheme="sum",
         batching=BatchingPolicy(max_size=LM_SLOTS), max_seq_len=LM_SEQ,
         max_new_tokens=LM_NEW, straggle_ms=straggle_ms, delay_fn=delay_fn,
-        device=DEV)
+        mesh=mesh, device=DEV)
     t0 = time.perf_counter()
     with deploy_lm(spec, engine="threads") as sess:
         t1 = time.perf_counter()
@@ -1476,6 +1492,7 @@ def phase_lm():
         c.reset()
     uncounted = Uncounted()
     futs, clean, setup_s, serve_s = lm_serve(cfg, params, prompts, 10_000.0)
+    served = [f.result() for f in futs]
     log_serve("no straggler", clean, setup_s, serve_s, 10_000.0)
     ties = {f.rid: check_tokens(f"rid {f.rid}", f.result(), loops[f.rid])
             for f in futs}
@@ -1571,7 +1588,7 @@ def phase_lm():
         serve_device_busy_share=serve_busy / serve_wall,
         rebuilt_token_agreement=agree), dict(
         cfg=cfg, params=params, prompts=prompts, loops=loops,
-        straggle_ms=straggle_ms, agree=agree)
+        served=served, straggle_ms=straggle_ms, agree=agree)
 
 
 # ------------------------------------------------------------ phase 9 ----
@@ -2577,6 +2594,209 @@ def phase11():
                       train_launcher=train, peak_gib=peak)
 
 
+# ----------------------------------------------------------- phase 12 ----
+# the launch layer on the card: phase 8's qwen2-0.5b (seed 0, the same
+# weights) on a (1, 1) mesh over one NCCL rank, the launcher's logical rules
+# active; then the host-only dry run of two full-size pairs on (16, 16)
+DRY_PAIRS = (("qwen2-0.5b", "decode_32k", "pod"),
+             ("deepseek-moe-16b", "prefill_32k", "pod"))
+
+
+def launches_per_call(fn, name):
+    """``fn()`` and the launches of kernel ``name`` it made."""
+    before = counts()[name]
+    out = fn()
+    return out, counts()[name] - before
+
+
+def mesh_steps(cfg, params, mesh, ref, uncounted):
+    """The prefill and decode steps under the rules: prefill bit-equal to
+    T.prefill without rules (uncounted), decode giving phase 8's loop
+    tokens.  Returns a summary."""
+    per_prefill, per_step, same = [], [], 0
+    with torch.inference_mode():
+        for prompt, loop in zip(ref["prompts"], ref["loops"]):
+            toks = torch.tensor([prompt], device=DEV)
+            with uncounted():
+                plain = T.prefill(cfg, params, tokens=toks)
+            with logical_rules(*rules_for_mesh(mesh), mesh):
+                (logits, cache), n = launches_per_call(
+                    lambda: launch_steps.make_prefill_step(cfg)(
+                        params, {"tokens": toks}), "flash_attention")
+                per_prefill.append(n)
+                if not all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves((logits, cache)), tree_leaves(plain))):
+                    raise AssertionError("distributed: the prefill step under"
+                                         " the rules is not bit-equal to "
+                                         "T.prefill")
+                # decode from a pool of LM_SEQ slots holding the prefill, as
+                # phase 8's loop decodes
+                pool = T.init_cache(cfg, 1, LM_SEQ, device=DEV)
+                for dst, src in zip(tree_leaves(pool), tree_leaves(cache)):
+                    dst[:, :, :src.shape[2]] = src
+                row, out = logits[0, -1], []
+                for pos in range(len(prompt), len(prompt) + LM_NEW):
+                    out.append(int(torch.topk(row, 8).indices[0]))
+                    if len(out) == LM_NEW:
+                        break
+                    (logits, pool), n = launches_per_call(
+                        lambda: launch_steps.make_decode_step(cfg, pos)(
+                            params, pool, {"token": torch.tensor(
+                                [[out[-1]]], device=DEV)}),
+                        "decode_attention")
+                    per_step.append(n)
+                    row = logits[0, 0]
+            same += out == loop[0]
+            del plain, cache, pool
+    if same != len(ref["prompts"]):
+        raise AssertionError(f"distributed: the decode step's tokens equal "
+                             f"phase 8's loop for {same} of "
+                             f"{len(ref['prompts'])} prompts")
+    L_ = cfg.n_layers
+    if set(per_prefill) != {L_} or set(per_step) != {L_}:
+        raise AssertionError(f"distributed: B7 launches per prefill "
+                             f"{sorted(set(per_prefill))}, B8 per decode step "
+                             f"{sorted(set(per_step))}, not {L_}")
+    log(f"[distributed] prefill step under the rules bit-equal to T.prefill "
+        f"without rules on all {len(per_prefill)} of phase 8's prompts, "
+        f"{L_} B7 launches per prefill; decode step, {LM_NEW - 1} steps per "
+        f"prompt, {L_} B8 launches per step, tokens equal to phase 8's loop "
+        f"on {same} of {len(ref['prompts'])} prompts")
+    return {"prefills": len(per_prefill), "b7_per_prefill": L_,
+            "decode_steps": len(per_step), "b8_per_step": L_,
+            "prompts_equal_to_loop": same}
+
+
+def coded_steps(cfg, params, mesh, prompts, uncounted):
+    """Both coded-serve flavours (k=2) on members' prompts paired from
+    phase 8's (the longer cut to the shorter): the optimized flavour's
+    [B, 1, V] logits held to the baseline's last position within
+    LM_LOGIT_TOL, argmax equal unless the baseline's top-2 gap is below
+    LM_GAP_TOL; each flavour's host and device ms (the timing runs
+    uncounted)."""
+    rows = []
+    with logical_rules(*rules_for_mesh(mesh), mesh):
+        for a, b in zip(prompts[0::2], prompts[1::2]):
+            S = min(len(a), len(b))
+            toks = torch.tensor([[a[:S]], [b[:S]]], device=DEV)  # [2, 1, S]
+            out, times = {}, {}
+            for opt in (False, True):
+                step = launch_steps.make_coded_serve_step(cfg, K, opt)
+
+                def run(step=step, toks=toks):
+                    with torch.inference_mode():
+                        return step(params, {"tokens": toks})[0]
+                out[opt] = run()
+                with uncounted():
+                    _, busy, n_ops = device_profile(run)
+                    times[opt] = {"host_ms": host_ms(run),
+                                  "device_ms": busy * 1e3,
+                                  "device_ops": n_ops}
+            base, fast = out[False][0, -1], out[True][0, -1]
+            err = float((fast - base).abs().max())
+            top = torch.topk(base, 2).values
+            gap = float(top[0] - top[1])
+            tie_ok = int(fast.argmax()) == int(base.argmax()) or \
+                gap < LM_GAP_TOL
+            if tuple(out[True].shape) != (1, 1, cfg.vocab) or \
+                    not err <= LM_LOGIT_TOL or not tie_ok:
+                raise AssertionError(
+                    f"distributed: coded-serve flavours differ at S={S}: "
+                    f"shape {tuple(out[True].shape)}, max abs logit err "
+                    f"{err}, argmax {int(fast.argmax())} vs "
+                    f"{int(base.argmax())} (top-2 gap {gap})")
+            rows.append({"S": S, "max_abs_err": err, "top2_gap": gap,
+                         "baseline": times[False], "optimized": times[True]})
+            log(f"[distributed] coded-serve step k={K}, members of {S} "
+                f"tokens: optimized [1,1,V] vs baseline's last position max "
+                f"abs logit err {err:.4f} (tolerance {LM_LOGIT_TOL:g}), "
+                f"argmax {'equal' if int(fast.argmax()) == int(base.argmax()) else 'differs at a near-tie'}; "
+                f"baseline host {times[False]['host_ms']:.3f} ms, device "
+                f"{times[False]['device_ms']:.3f} ms "
+                f"({times[False]['device_ops']} ops); optimized host "
+                f"{times[True]['host_ms']:.3f} ms, device "
+                f"{times[True]['device_ms']:.3f} ms "
+                f"({times[True]['device_ops']} ops)")
+    return rows
+
+
+def meshed_serve(cfg, params, mesh, ref):
+    """deploy_lm with GenerationSpec(mesh=...) on phase 8's requests: the
+    tokens of phase 8's serve without a mesh (a stream that differs must
+    still meet phase 8's near-tie rule against the loop)."""
+    futs, stats, setup_s, serve_s = lm_serve(cfg, params, ref["prompts"],
+                                             10_000.0, mesh=mesh)
+    log_serve("mesh (1, 1), no straggler", stats, setup_s, serve_s,
+              10_000.0, tag="distributed")
+    served = [f.result() for f in futs]
+    same = sum(a == b for a, b in zip(served, ref["served"]))
+    for f in futs:
+        check_tokens(f"distributed rid {f.rid}", f.result(),
+                     ref["loops"][f.rid])
+    if stats.reconstructed_steps or stats.n != LM_REQUESTS * LM_NEW:
+        raise AssertionError(f"distributed serve: {stats}")
+    log(f"[distributed] deploy_lm on the (1, 1) mesh: {same} of "
+        f"{len(served)} streams token for token equal to phase 8's serve "
+        f"without a mesh")
+    return {"streams_equal_to_unmeshed": same, "n": stats.n,
+            "tokens_per_s": stats.tokens_per_s}
+
+
+def dry_runs():
+    out = {}
+    for arch, shape, mesh in DRY_PAIRS:
+        r = dryrun.run_pair(arch, shape, mesh, verbose=False)
+        mem, roof = r["memory"], r["roofline"]
+        log(f"[distributed] dry run {arch} {shape} on {mesh} "
+            f"({r['chips']} devices, host only, torch {r['torch']}): per "
+            f"device arguments {gib(mem['argument_bytes']):.3f} GiB, outputs "
+            f"{gib(mem['output_bytes']):.3f} GiB, temporaries (eager peak) "
+            f"{gib(mem['temp_bytes']):.3f} GiB, peak live "
+            f"{gib(mem['peak_live_bytes']):.3f} GiB; roofline on "
+            f"{roof['hardware']['name']}: compute {roof['compute_s'] * 1e3:.3f}"
+            f" ms, memory {roof['memory_s'] * 1e3:.3f} ms, collective "
+            f"{roof['collective_s'] * 1e3:.3f} ms ({roof['dominant']}); "
+            f"{r['compile_s']:.1f} s")
+        out[f"{arch}__{shape}__{mesh}"] = {
+            "memory": mem, "compute_s": roof["compute_s"],
+            "memory_s": roof["memory_s"],
+            "collective_s": roof["collective_s"],
+            "dominant": roof["dominant"], "seconds": r["compile_s"]}
+    return out
+
+
+def phase12(ref):
+    """The launch steps on a one-device mesh (path 7) and the dry run:
+    (main-path launches, summary)."""
+    log(f"[distributed] torch {torch.__version__} (CUDA "
+        f"{torch.version.cuda})")
+    cfg = get_config(LM_ARCH)
+    params = T.init_params(cfg, 0, device=DEV)
+    for c in ops.counters().values():
+        c.reset()
+    uncounted = Uncounted()
+    with launch_mesh.card_world():
+        mesh = launch_mesh.make_test_mesh((1, 1), device_type="cuda")
+        log(f"[distributed] mesh {mesh} over one NCCL rank; params stay "
+            f"plain tensors on the card")
+        steps = mesh_steps(cfg, params, mesh, ref, uncounted)
+        coded = coded_steps(cfg, params, mesh, ref["prompts"], uncounted)
+        serve = meshed_serve(cfg, params, mesh, ref)
+    path = {name: v - uncounted.n[name] for name, v in counts().items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dry_runs()
+    log(f"[distributed] main-path launches {path} (comparison and "
+        f"measurement launches left out: {dict(uncounted.n)})")
+    missing = [name for name in PATH7 if path[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the distributed "
+                             f"path: {missing}")
+    return path, dict(torch=torch.__version__, steps=steps, coded=coded,
+                      serve=serve, dry_run=dry)
+
+
 def head_entry(row):
     """A kernel's measurements at another model's heads (phase 2)."""
     return {"shape": row["shape"], "max_abs_err": row["max_abs_err"],
@@ -2614,6 +2834,7 @@ PATH4 = ("parity_encode", "parity_decode", "flash_attention",
          "decode_attention")
 PATH5 = ("flash_attention", "decode_attention")
 PATH6 = ("flash_attention", "decode_attention")
+PATH7 = ("flash_attention", "decode_attention")
 
 
 def main():
@@ -2700,6 +2921,7 @@ def main():
     train = phase_train(lm_ctx)
     train.update(vjp_max_abs_err=vjp, card_vs_cpu_step=card_cpu)
     path4 = counts()
+    lm_ref = {key: lm_ctx[key] for key in ("prompts", "loops", "served")}
     del lm_ctx
     t9 = time.perf_counter()
     log(f"[time] phase 9 train: {t9 - t8:.1f} s")
@@ -2725,6 +2947,14 @@ def main():
     t11 = time.perf_counter()
     log(f"[time] phase 11 cross: {t11 - t10:.1f} s")
 
+    # ---- path 7: the launch steps on a one-device mesh (phase 12), with
+    # phase 11's models freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    path7, distributed = phase12(lm_ref)
+    t12 = time.perf_counter()
+    log(f"[time] phase 12 distributed: {t12 - t11:.1f} s")
+
     kernels = []
     for name in ("parity_encode", "fused_encode_forward", "parity_decode",
                  "multigroup_decode", "learned_project", "berrut_encode",
@@ -2732,7 +2962,8 @@ def main():
         by_path = {"mlp_serving": path1[name], "schemes": path2[name],
                    "lm_serving": path3[name], "lm_training": path4[name],
                    "moe_ssm_serving": path5[name],
-                   "cross_serving": path6[name]}
+                   "cross_serving": path6[name],
+                   "distributed": path7[name]}
         kernels.append(kernel_entry(name, rows[name], sum(by_path.values()),
                                     by_path))
     log(json.dumps({"summary": {
@@ -2751,6 +2982,7 @@ def main():
         "lm_training": train,
         "moe_ssm_hybrid": hybrid,
         "cross": cross,
+        "distributed": distributed,
         "seconds": time.perf_counter() - t0}}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))

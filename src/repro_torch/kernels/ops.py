@@ -15,6 +15,12 @@ op fails in the CPU tests instead of training without that gradient on the
 card.  Training differentiates the plain paths (``attn_backend="torch"``,
 ``scheme.encode_with_params``); forwards under ``torch.no_grad()`` or
 ``torch.inference_mode()`` run the kernels.
+
+Nor does any kernel take a ``DTensor`` (a tensor sharded over a device
+mesh): every op raises ``RuntimeError`` on one, on both devices, rather
+than run on a local shard or fall back to a plain version.  On a mesh of one
+device the launch steps hand the ops plain tensors; kernels over the local
+shards of a sharded mesh are ``ROADMAP.md`` B.4.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import berrut_encoder as _berrut
@@ -64,6 +71,16 @@ def _no_backward(name, *xs):
             "torch.no_grad()")
 
 
+def _no_dtensor(name, *xs):
+    """Raise when ``name`` is handed a DTensor (see the module's
+    docstring)."""
+    if any(isinstance(x, DTensor) for x in xs):
+        raise RuntimeError(
+            f"{name} takes no DTensor: the kernels run on plain tensors (a "
+            "mesh of one device, or attn_backend='torch' on a sharded mesh);"
+            " kernels over local shards are ROADMAP.md B.4")
+
+
 def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -71,6 +88,7 @@ def _f32(x, device):
 def parity_encode_op(queries, coeffs):
     """queries [k, B, ...] (any trailing feature shape); coeffs [k]."""
     _no_backward("parity_encode_op", queries, coeffs)
+    _no_dtensor("parity_encode_op", queries, coeffs)
     k, B = queries.shape[:2]
     flat = queries.reshape(k, B, -1)
     c = _f32(coeffs, flat.device)
@@ -89,6 +107,7 @@ def parity_decode_op(parity_out, outputs, missing_idx, coeffs=None):
     inv_c = 1 / c_j), so the card sees one launch; a CUDA ``coeffs`` raises
     ``TypeError``."""
     _no_backward("parity_decode_op", parity_out, outputs, coeffs)
+    _no_dtensor("parity_decode_op", parity_out, outputs, coeffs)
     j = int(missing_idx)
     if coeffs is None:
         avail, inv_c = np.ones(outputs.shape[0], np.float32), np.float32(1.0)
@@ -109,6 +128,7 @@ def fused_encode_forward_op(queries, coeffs, weights):
     F); coeffs [r, k]; weights [r, F, V] — one first-layer matrix per parity
     row — returns [r, B, V]."""
     _no_backward("fused_encode_forward_op", queries, coeffs, weights)
+    _no_dtensor("fused_encode_forward_op", queries, coeffs, weights)
     k, B = queries.shape[:2]
     flat = queries.reshape(k, B, math.prod(queries.shape[2:]))   # F may be 0
     C = _f32(coeffs, flat.device)
@@ -126,6 +146,7 @@ def multigroup_decode_op(parity_outs, outputs, missing_idxs, coeffs):
     coeffs [k] (shared) or [G, k] (per-group).  Returns reconstructions
     shaped like ``parity_outs``."""
     _no_backward("multigroup_decode_op", parity_outs, outputs, coeffs)
+    _no_dtensor("multigroup_decode_op", parity_outs, outputs, coeffs)
     G, k = outputs.shape[:2]
     dev = outputs.device
     if parity_outs.ndim >= 3:
@@ -154,6 +175,7 @@ def berrut_encode_op(queries, coeffs):
     """Approxifer encode projection: queries [k, B, ...] (any trailing
     feature shape); coeffs [r, k] -> [r, B, ...], one launch for all r."""
     _no_backward("berrut_encode_op", queries, coeffs)
+    _no_dtensor("berrut_encode_op", queries, coeffs)
     k, B = queries.shape[:2]
     flat = queries.reshape(k, B, -1)
     c = _f32(coeffs, flat.device)
@@ -168,6 +190,7 @@ def learned_project_op(h, w):
     """Learned-encoder final projection: h [H, B, ...] (any trailing feature
     shape); w [H, r] -> [r, B, ...]."""
     _no_backward("learned_project_op", h, w)
+    _no_dtensor("learned_project_op", h, w)
     hd, B = h.shape[:2]
     flat = h.reshape(hd, B, -1)
     wf = _f32(w, flat.device)
@@ -190,6 +213,7 @@ def flash_attention_op(q, k, v, *, causal=True, window=0):
     on the "torch" backend (``models.layers.flash_attention_xla``, the
     custom VJP)."""
     _no_backward("flash_attention_op", q, k, v)
+    _no_dtensor("flash_attention_op", q, k, v)
     if _on_card(q):
         return _flash.flash_attention(_aligned(q), _aligned(k), _aligned(v),
                                       causal=causal, window=window)
@@ -201,6 +225,7 @@ def decode_attention_op(q, k_cache, v_cache, pos):
     scalar or [B] per-row positions (int, numpy or tensor); valid slots
     j <= pos[b]."""
     _no_backward("decode_attention_op", q, k_cache, v_cache)
+    _no_dtensor("decode_attention_op", q, k_cache, v_cache)
     if not _on_card(q):
         return ref.decode_attention_ref(q, k_cache, v_cache, pos)
     if isinstance(pos, torch.Tensor):

@@ -16,9 +16,17 @@ layouts (dense weights [in, out]).  Attention routes by ``backend`` (default
 Cross attention (to modality embeddings or their cached K/V) and the
 encoder's bidirectional attention take the non-causal block scan on both
 backends, as in the reference, whose flash kernel covers causal self
-attention only.  The sharding constraints are not ported: the port runs on
-one card (the MoE and Mamba2 layers are ``models/moe.py`` and
-``models/mamba.py``).
+attention only.
+
+Activations carry the reference's logical sharding constraints
+(``distributed.logical.constrain``): the identity without launcher rules
+(one card, the unit tests), a DTensor redistribution under them.  Where a
+sharded width is reshaped into heads (q/k/v, the GQA group split) or heads
+back into a width (before ``wo``), the constraint comes *before* the
+reshape, its divisibility guard reading the head count: DTensor cannot
+split a width sharded 16 ways into 14 heads, where GSPMD reshards on its
+own.  The block scan runs on each rank's local shard of the batch and the
+KV heads (``_local_heads``).
 
 Decode writes the new key/value row into the cache IN PLACE (the JAX
 package rebinds an immutable pool): callers that need the old cache clone
@@ -31,8 +39,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ATTN_BACKENDS
+from repro_torch.distributed import logical
+from repro_torch.distributed.logical import constrain
 
 NEG_INF = -1e30
 
@@ -50,6 +62,30 @@ def _backend(cfg, backend):
         raise ValueError(f"attention backend must be one of {ATTN_BACKENDS}, "
                          f"got {backend!r}")
     return backend
+
+
+def split_heads(t, n, hd, name="heads"):
+    """[B, S, n*hd] -> [B, S, n, hd], constrained first so that a sharded
+    width splits into whole heads (``name`` the heads' logical axis)."""
+    B, S = t.shape[:2]
+    t = constrain(t, ("batch", None, name), shape=(B, S, n))
+    return t.reshape(B, S, n, hd)
+
+
+def merge_heads(o):
+    """[B, S, H, hd] -> [B, S, H*hd], heads constrained first."""
+    B, S, H, hd = o.shape
+    o = constrain(o, ("batch", None, "heads", None))
+    return o.reshape(B, S, H * hd)
+
+
+def group_heads(q, KV):
+    """[B, S, H, hd] -> [B, S, KV, rep, hd] (GQA groups), the query heads
+    constrained first by the KV-head count."""
+    B, S, H, hd = q.shape
+    q = constrain(q, ("batch", None, "kv_heads", None), shape=(B, S, KV, hd))
+    return constrain(q.reshape(B, S, KV, H // KV, hd),
+                     ("batch", None, "kv_heads", None, None))
 
 
 # --------------------------------------------------------------------------
@@ -135,8 +171,32 @@ def _block_mask(qpos, kpos, Sk, causal, window):
 def flash_attention_xla(q, k, v, *, causal=True, window=0, q_offset=0,
                         block=1024):
     """q [B,Sq,H,hd]; k,v [B,Sk,KV,hd] -> [B,Sq,H,hd].  Keyword-friendly
-    wrapper over the custom-VJP core (:class:`_FlashCore`)."""
-    return _FlashCore.apply(q, k, v, causal, window, q_offset, block)
+    wrapper over the custom-VJP core (:class:`_FlashCore`); on DTensors
+    under launcher rules, per shard (:func:`_local_heads`), which takes the
+    place of the reference's constraints on the scan's carries."""
+    def core(q, k, v):
+        return _FlashCore.apply(q, k, v, causal, window, q_offset, block)
+    return _local_heads(core, q, k, v)
+
+
+def _local_heads(fn, q, k, v):
+    """``fn(q, k, v)``, on each rank's local shard of the batch and the KV
+    heads when the inputs are DTensors under launcher rules: attention is
+    independent per (batch row, KV head), and the query heads shard by the
+    KV-head count (the reference's constraint on the grouped query).  The
+    scan then runs on plain local tensors, forward and backward; DTensor
+    would instead flatten a sharded head dimension into its batched
+    products, which torch 2.11 refuses."""
+    if logical.state()[0] is None or not isinstance(q, DTensor):
+        return fn(q, k, v)
+    B, Sq, _, hd = q.shape
+    spec = logical.logical_spec((B, Sq, k.shape[2], hd),
+                                ("batch", None, "kv_heads", None))
+    pl = logical.placements(spec, q.device_mesh)
+    # a list: local_map reads a tuple as one placement per output
+    return local_map(fn, out_placements=list(pl), in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def _flash_fwd_impl(q, k, v, causal, window, q_offset, block):
@@ -243,8 +303,12 @@ def attention_decode_xla(q, k_cache, v_cache, pos, *, window=0):
     mask then covers every slot already written."""
     B, _, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    rep = H // KV
-    qg = q[:, 0].reshape(B, KV, rep, hd) * hd ** -0.5
+    # the cache shards its sequence dim over whatever mesh axes the batch
+    # leaves (decode_32k: batch->data, seq->model); kv-heads stay local and
+    # GQA is a grouped einsum
+    k_cache = constrain(k_cache, ("batch", "seq", "kv_heads", None))
+    v_cache = constrain(v_cache, ("batch", "seq", "kv_heads", None))
+    qg = group_heads(q, KV)[:, 0] * hd ** -0.5
     s = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k_cache.float())
     kpos = torch.arange(S, device=q.device)
     if isinstance(pos, torch.Tensor) and pos.ndim:     # per-row [B]
@@ -305,17 +369,15 @@ def init_attention(cfg, gen, cross=False, *, device="cpu", lead=()):
 
 
 def _qkv(cfg, p, xq, xkv):
-    B, Sq, _ = xq.shape
-    Skv = xkv.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = xq @ p["wq"]
     k = xkv @ p["wk"]
     v = xkv @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, Sq, H, hd)
-    k = k.reshape(B, Skv, KV, hd)
-    v = v.reshape(B, Skv, KV, hd)
+    q = split_heads(q, H, hd)
+    k = split_heads(k, KV, hd, "kv_heads")
+    v = split_heads(v, KV, hd, "kv_heads")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -340,8 +402,7 @@ def self_attention_fwd(cfg, p, x, rope_cs, *, window=0, q_offset=0,
     else:
         o = flash_attention_xla(q, k, v, causal=True, window=window,
                                 q_offset=q_offset)
-    B, S, H, hd = o.shape
-    return o.reshape(B, S, H * hd) @ p["wo"], (k, v)
+    return merge_heads(o) @ p["wo"], (k, v)
 
 
 def cross_attention_fwd(cfg, p, x, kv_or_embeds, *, from_cache=False):
@@ -349,19 +410,17 @@ def cross_attention_fwd(cfg, p, x, kv_or_embeds, *, from_cache=False):
     ``from_cache``, to their cached (k, v) [B, S_ctx, KV, hd]): no RoPE, no
     mask.  Returns (out, (k, v))."""
     if from_cache:
-        B, Sq, _ = x.shape
         q = x @ p["wq"]
         if cfg.qkv_bias:
             q = q + p["bq"]
-        q = q.reshape(B, Sq, cfg.n_heads, cfg.resolved_head_dim)
+        q = split_heads(q, cfg.n_heads, cfg.resolved_head_dim)
         if cfg.qk_norm:
             q = rms_norm(q, p["q_norm"])
         k, v = kv_or_embeds
     else:
         q, k, v = _qkv(cfg, p, x, kv_or_embeds)
     o = flash_attention_xla(q, k, v, causal=False)
-    B, Sq, H, hd = o.shape
-    return o.reshape(B, Sq, H * hd) @ p["wo"], (k, v)
+    return merge_heads(o) @ p["wo"], (k, v)
 
 
 def self_attention_decode(cfg, p, x, cache, pos, rope_cs, *, window=0,
@@ -407,9 +466,7 @@ def self_attention_decode(cfg, p, x, cache, pos, rope_cs, *, window=0,
         o = o[:, None].to(q.dtype)
     else:
         o = attention_decode_xla(q, k_cache, v_cache, pos, window=window)
-    B, _, H, hd = o.shape
-    out = o.reshape(B, 1, H * hd) @ p["wo"]
-    return out, cache
+    return merge_heads(o) @ p["wo"], cache
 
 
 def init_attn_cache(cfg, batch, seq_len, *, device="cpu", lead=()):

@@ -14,6 +14,10 @@ and masked afterwards, as the reference does.  For i < j it can overflow to
 inf at the full chunk of 256, which leaves the forward unchanged but makes
 the masked branch's gradient 0 * inf: the gradients are finite at the
 reduced chunk only (``ROADMAP.md`` §C).
+
+The reference's logical sharding constraints are kept (the identity without
+launcher rules); a head split of a width is constrained before the reshape,
+as in ``models/layers.py``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.logical import constrain
 from repro_torch.models.layers import _dense, make_norm, rms_norm, \
     torch_dtype
 
@@ -108,10 +113,14 @@ def ssd_fwd(cfg, p, x, *, init_state=None, return_state=False):
         dt = dt.masked_fill(~step_mask[None, :, None], -1e9)
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, L, H, P)
+    xs = constrain(xs, ("batch", None, "heads"), shape=(B, L, H))
+    xs = constrain(xs.reshape(B, L, H, P), ("batch", None, "heads", None))
+    Bm = constrain(Bm, ("batch", None, None))
+    Cm = constrain(Cm, ("batch", None, None))
 
     delta = F.softplus(dt.float() + p["dt_bias"])                # [B,L,H]
-    loga = -torch.exp(p["A_log"]) * delta                        # [B,L,H]
+    loga = constrain(-torch.exp(p["A_log"]) * delta,
+                     ("batch", None, "heads"))                   # [B,L,H]
     dx = xs.float() * delta[..., None]                           # Δ·x
 
     rep = H // G
@@ -123,7 +132,8 @@ def ssd_fwd(cfg, p, x, *, init_state=None, return_state=False):
 
     # ---- intra-chunk (quadratic, parallel over chunks) ----
     # scores[b,c,h,i,j] = (C_i . B_j) * exp(cum_i - cum_j), i >= j
-    cb = torch.einsum("bcihn,bcjhn->bchij", Ch, Bh)
+    cb = constrain(torch.einsum("bcihn,bcjhn->bchij", Ch, Bh),
+                   ("batch", None, "heads", None, None))
     dec = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
     dec = dec.permute(0, 1, 4, 2, 3)                             # [B,nc,H,i,j]
     ii = torch.arange(Q, device=x.device)
@@ -138,17 +148,20 @@ def ssd_fwd(cfg, p, x, *, init_state=None, return_state=False):
 
     h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
          if init_state is None else init_state.float())
+    h = constrain(h, ("batch", "heads", None, None))
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+        h = constrain(h * chunk_decay[:, c, :, None, None] + states[:, c],
+                      ("batch", "heads", None, None))
     h_prevs = torch.stack(h_prevs, dim=1)                        # [B,nc,H,N,P]
 
     inter_dec = torch.exp(cum)                                   # [B,nc,Q,H]
     y_inter = torch.einsum("bcihn,bcih,bchnp->bcihp", Ch, inter_dec, h_prevs)
 
     y = (y_intra + y_inter).reshape(B, L, H, P)
-    y = y + p["D"][None, None, :, None] * xs.float()
+    y = constrain(y + p["D"][None, None, :, None] * xs.float(),
+                  ("batch", None, "heads", None))
     y = y.reshape(B, L, di)
     y = rms_norm((y * F.silu(z.float())).to(x.dtype), p["gate_norm"])
     out = (y @ p["out_proj"])[:, :L0]
@@ -186,7 +199,10 @@ def ssd_decode(cfg, p, x, cache):
     new_conv = win[:, 1:, :]
 
     xs, Bm, Cm = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+    xs = constrain(xs, ("batch", "heads"), shape=(B, H))
     xs = xs.reshape(B, H, P).float()
+    Bm = constrain(Bm, ("batch", None))
+    Cm = constrain(Cm, ("batch", None))
     rep = H // G
     Bh = _heads(Bm.reshape(B, G, N).float(), rep)
     Ch = _heads(Cm.reshape(B, G, N).float(), rep)

@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.convert import resolve_device, tree_leaves
+from repro_torch.distributed.logical import constrain, constrain_spec
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
@@ -237,11 +238,12 @@ def _stack_fwd(cfg, stacked, x, ctx, plan, remat=False, n_groups=None):
     def group(x, g):
         aux = 0.0
         caches = []
+        x = constrain(x, ("batch", None, None))
         for i, spec in enumerate(plan):
             x, a, c = _layer_fwd(cfg, spec, _group(stacked[i], g), x, ctx)
             aux = aux + a
             caches.append(c)
-        return x, aux, caches
+        return constrain(x, ("batch", None, None)), aux, caches
 
     aux = 0.0
     per_group = []
@@ -310,10 +312,15 @@ def embed_tokens(cfg, params, tokens):
     return params["embed"][tokens.long()]
 
 
-def _logits(cfg, params, x):
+def _logits(cfg, params, x, logits_pspec=None):
     x = L.apply_norm(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head).float()
+    # keep the fp32 logits vocab-sharded on the tensor axis: unsharded
+    # [B*S, V] fp32 logits dominate a train step's memory otherwise
+    out = constrain((x @ head).float(), ("batch", None, "vocab"))
+    if logits_pspec is not None:
+        out = constrain_spec(out, logits_pspec)
+    return out
 
 
 def _rope(cfg, pos):
@@ -363,7 +370,7 @@ def _context(cfg, params, cross_embeds):
 
 
 def forward(cfg, params, tokens=None, embeds=None, cross_embeds=None,
-            remat=False, unembed_last_only=False):
+            remat=False, logits_pspec=None, unembed_last_only=False):
     """Teacher-forced full-sequence logits. Returns (logits_f32, aux); aux is
     the MoE router loss summed over layers and groups (0 without MoE).
 
@@ -372,7 +379,9 @@ def forward(cfg, params, tokens=None, embeds=None, cross_embeds=None,
     the encoder runs over first (encoder-decoder).  ``remat`` recomputes
     each group's activations in the backward pass (training);
     ``unembed_last_only`` skips the [B, S, V] unembed and projects only the
-    final position — the serving prefill only consumes the last token."""
+    final position — the serving prefill only consumes the last token.
+    ``logits_pspec``, a spec tuple, places the logits on a device mesh
+    (``launch.steps.logits_pspec``; nothing without one)."""
     context = _context(cfg, params, cross_embeds)
     x = _embed(cfg, params, tokens, embeds)
     ctx = _make_ctx(cfg, x.shape[1], x.device, cross_embeds=context)
@@ -382,7 +391,7 @@ def forward(cfg, params, tokens=None, embeds=None, cross_embeds=None,
         x = x[:, -1:]
     if not isinstance(aux, torch.Tensor):          # no MoE layer
         aux = torch.zeros((), device=x.device)
-    return _logits(cfg, params, x), aux
+    return _logits(cfg, params, x, logits_pspec), aux
 
 
 def prefill(cfg, params, tokens=None, embeds=None, cross_embeds=None,

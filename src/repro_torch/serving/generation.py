@@ -54,7 +54,8 @@ step before its next one — the cache-repair rule is unchanged.  A decode
 advances an SSM state, so each served pool sees exactly the decodes the
 reference keeps: one per coded step, and none from the warm-up.  Executors launch on PyTorch's current
 stream; ``to_host`` on the logits is the sync point.  ``GenerationSpec``
-drops the reference's ``mesh`` (the port serves on one card) and gains
+keeps the reference's ``mesh`` (``place_inference_params``), on one device
+only, and gains
 ``device`` and ``hardware`` (the sim engine's roofline device).
 """
 from __future__ import annotations
@@ -100,8 +101,12 @@ class GenerationSpec:
     / ``tp`` / ``hardware`` calibrate the sim engine's token-level service
     model.  ``device`` is where the threads engine runs (default ``"cuda"``;
     constructing a spec raises without a card unless ``device="cpu"``).
-    The reference's ``mesh`` (a sharded inference layout) is dropped: the
-    port serves on one card.
+    ``mesh``, a ``DeviceMesh`` of one device, puts the parameters on its
+    inference layout (``place_inference_params``): they stay plain tensors
+    on its device and the kernels serve as without a mesh.  A larger mesh
+    raises here: its DTensor parameters reach the kernels, which refuse
+    them, and the serving threads run outside the logical rules
+    (``ROADMAP.md`` B.4).
     """
 
     cfg: Any = None
@@ -131,6 +136,10 @@ class GenerationSpec:
     embed_fn: Optional[Callable] = None
     init_cache_fn: Optional[Callable] = None
 
+    # distributed placement: a DeviceMesh of one device puts params on the
+    # inference layout (distributed/sharding.py, fsdp_params=False)
+    mesh: Any = None
+
     device: str = "cuda"
 
     # sim-engine calibration: m member streams at `utilization` of the
@@ -149,6 +158,11 @@ class GenerationSpec:
         if not isinstance(self.batching, BatchingPolicy):
             raise TypeError(
                 f"batching must be a BatchingPolicy, got {self.batching!r}")
+        if self.mesh is not None and self.mesh.size() > 1:
+            raise ValueError(
+                f"GenerationSpec serves on a mesh of one device, got "
+                f"{tuple(self.mesh.shape)}: serving on a sharded mesh is "
+                f"ROADMAP.md B.4")
         resolve_device(self.device)
 
     def replace(self, **changes) -> "GenerationSpec":
@@ -305,6 +319,16 @@ def _resolve_fns(spec):
     return _transformer_fns(spec)
 
 
+def place_inference_params(params, mesh):
+    """Put a param tree on the inference layout of ``mesh``:
+    ``ShardingRules(mesh, fsdp_params=False)`` — tensor-parallel over the
+    model axis, replicated over the data axis (every member instance holds
+    a full replica); plain tensors on a mesh of one device."""
+    from repro_torch.distributed.sharding import ShardingRules
+    rules = ShardingRules(mesh, fsdp_params=False)
+    return rules.distribute(params, rules.params(params))
+
+
 def _write_slot(pool, one, s):
     """Copy a batch-1 cache ``one`` into slot column s of ``pool``, leaf by
     leaf, in place (axis 1 is the slot axis, as in the reference's
@@ -343,6 +367,9 @@ class GenerationSession:
         params = spec.params
         pparams = spec.parity_params if spec.parity_params is not None \
             else params
+        if spec.mesh is not None:
+            params = place_inference_params(params, spec.mesh)
+            pparams = place_inference_params(pparams, spec.mesh)
         self.params, self.parity_params = params, pparams
 
         # one fixed-shape cache pool per instance; slots never reshape

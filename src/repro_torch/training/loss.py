@@ -3,13 +3,30 @@ parity-distillation MSE (§3.3 / §4.1 — MSE keeps ParM task-agnostic)."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+
+def _gold(logits, labels):
+    """logits[..., labels]: a gather, or, on a DTensor, the one logit where
+    the label equals vocabulary ids placed like the logits' last dim (the
+    same value and gradient; DTensor's gather along a sharded vocab dim
+    fails to reduce its result in torch 2.13)."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    last = logits.ndim - 1
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    ids = DTensor.from_local(ids, logits.device_mesh, [Replicate()] * len(
+        logits.placements)).redistribute(placements=[
+            Shard(0) if pl == Shard(last) else Replicate()
+            for pl in logits.placements])
+    return torch.where(labels[..., None] == ids, logits, 0.0).sum(-1)
 
 
 def softmax_xent(logits, labels, mask=None):
     """logits [..., V] float32; labels [...] int. Mean over valid tokens."""
     labels = torch.as_tensor(labels, device=logits.device).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    gold = _gold(logits, labels)
     nll = logz - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)

@@ -71,16 +71,18 @@ def _context_kw(cfg, batch, device):
     return {"cross_embeds": as_tensor(batch[key], device)} if key else {}
 
 
-def lm_loss_fn(cfg, remat):
+def lm_loss_fn(cfg, remat, logits_pspec=None):
     """loss_fn(params, batch): the shifted next-token loss of
     ``batch["tokens"]`` [B, S], differentiable; ``batch`` also holds
     ``cross_embeds`` [B, n_ctx, D] (VLM) or ``frames`` [B, S_src, D]
-    (encoder-decoder)."""
+    (encoder-decoder).  ``logits_pspec`` as ``transformer.forward`` takes
+    it."""
     fcfg = grad_cfg(cfg)
 
     def loss_fn(params, batch):
         logits, aux = T.forward(fcfg, params, tokens=batch["tokens"],
-                                remat=remat, **_context_kw(
+                                remat=remat, logits_pspec=logits_pspec,
+                                **_context_kw(
                                     cfg, batch, params["embed"].device))
         tokens = torch.as_tensor(batch["tokens"], device=logits.device)
         return lm_loss(logits, tokens, aux, cfg.router_aux_coef)

@@ -493,6 +493,32 @@ def test_ops_refuse_a_gradient_on_the_card(cuda, dt):
     assert {n: c.value for n, c in ops.counters().items()} == before
 
 
+def test_ops_refuse_a_dtensor_on_the_card(cuda):
+    """A DTensor on the card's one-device mesh (one NCCL rank) handed to a
+    kernel op raises before anything launches."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.mesh import card_world, make_test_mesh
+    q = torch.randn((1, 64, 4, 32), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    kv = torch.randn((1, 64, 2, 32), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    x = torch.randn((2, 3, 8), generator=cuda, device="cuda")
+    before = {n: c.value for n, c in ops.counters().items()}
+    with card_world():
+        mesh = make_test_mesh((1, 1), device_type="cuda")
+
+        def dt(t):
+            return DTensor.from_local(t, mesh, [Replicate(), Replicate()])
+        with torch.no_grad():
+            with pytest.raises(RuntimeError, match="takes no DTensor"):
+                ops.flash_attention_op(dt(q), kv, kv)
+            with pytest.raises(RuntimeError, match="takes no DTensor"):
+                ops.decode_attention_op(dt(q[:, 0]), kv, kv, 3)
+            with pytest.raises(RuntimeError, match="takes no DTensor"):
+                ops.parity_encode_op(dt(x), [1.0, 1.0])
+    assert {n: c.value for n, c in ops.counters().items()} == before
+
+
 # --------------------------------------------------------------------------
 # the MoE / SSM / hybrid stacks and B7 / B8 at deepseek-moe-16b's attention
 # (16 heads over 16 KV heads, rep 1, head_dim 128)
