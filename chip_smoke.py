@@ -83,14 +83,24 @@ Phases, in order; any failure exits non-zero:
                host-only dry run of two full-size pairs on a (16, 16) mesh
                (``launch.dryrun.run_pair``) on this machine's torch.
 
+13. twins    — the five example drivers of ``repro_torch.examples``
+               through their ``main(argv)`` on the card: quickstart and
+               serve_parm at their defaults (the paper's MLP at 16x16x1,
+               B1 and B3), latency_study at a 20,000-query trace (the DES,
+               host only), serve_lm and train_parity_lm at their defaults
+               (reduced qwen2-0.5b and smollm-135m, fp32: B7 and B8 on
+               their SIMT routes); each one's result checked, its wall time
+               and launches by kernel printed.
+
 ``python3 chip_smoke.py --distil-lrs 1e-4,1e-3`` runs phase 9's
 distillation alone at each learning rate and prints no result line.
 
-The launch counters are zeroed before each of the seven paths (phases 3-4,
+The launch counters are zeroed before each of the eight paths (phases 3-4,
 the coded MLP serving path; phases 5-7, the scheme registry's path; phase 8,
 coded LM serving; phase 9, LM parity training and serving the trained model;
 phase 10, MoE / SSM / hybrid LM serving; phase 11, cross-attention and
-encoder-decoder LM serving; phase 12, the launch steps on a device mesh) and
+encoder-decoder LM serving; phase 12, the launch steps on a device mesh;
+phase 13, the example twins) and
 read after it; every kernel of a path must have run on it.
 Launches made only to compare a kernel path with its plain twin are not
 counted.  The last two lines of
@@ -345,7 +355,7 @@ def sweep_kernels():
     gen = torch.Generator(device=DEV).manual_seed(0)
     n = 0
     for k, B, F in [(2, 4, 512), (3, 1, 128), (4, 8, 1000), (6, 2, 257),
-                    (2, 4, 784), (2, 1, 784)]:
+                    (2, 4, 784), (2, 1, 784), (2, 1, 256)]:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(gen, (k, B, F), dt)
             c = torch.arange(1.0, k + 1.0, device=DEV)
@@ -420,8 +430,9 @@ def sweep_kernels():
     # last key tile) at qwen2-0.5b's heads and at deepseek-moe-16b's (16
     # over 16, hd 128: phase 10), phase 9's teacher forwards (1024 tokens,
     # eight full tiles) and launch/serve's reduced qwen2-0.5b (fp32 teacher
-    # batch of 4 and single queries, 32 tokens); B8 also on a full serving
-    # pool at each model's heads
+    # batch of 4 and single queries, 32 tokens; the twins' serve_lm prompts
+    # of 1-5 tokens); B8 also on a full serving pool at each model's heads
+    # and on serve_lm's pool of two 32-slot rows
     for B, Sq, Sk, H, KV, hd, causal, window in [
             (2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 4, 4, 64, True, 64),
             (2, 100, 100, 2, 1, 32, False, 0), (1, 128, 128, 8, 2, 128, True, 0),
@@ -430,7 +441,9 @@ def sweep_kernels():
             (1, 910, 910, 14, 2, 64, True, 0),
             (1, 910, 910, 16, 16, 128, True, 0),
             (1, 1024, 1024, 14, 2, 64, True, 0),
-            (4, 32, 32, 4, 2, 64, True, 0), (1, 32, 32, 4, 2, 64, True, 0)]:
+            (4, 32, 32, 4, 2, 64, True, 0), (1, 32, 32, 4, 2, 64, True, 0),
+            (1, 1, 1, 4, 2, 64, True, 0), (1, 3, 3, 4, 2, 64, True, 0),
+            (1, 5, 5, 4, 2, 64, True, 0)]:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(gen, (B, Sq, H, hd), dt)
             k = randn(gen, (B, Sk, KV, hd), dt)
@@ -453,7 +466,8 @@ def sweep_kernels():
             (3, 16, 4, 2, 64, [2, 9, 5]), (2, 100, 32, 2, 128, [99, 5000]),
             (4, 1280, 14, 2, 64, [300, 1279, 5, 700]),
             (4, 1280, 16, 16, 128, B8_POS),
-            (1, 8192, 16, 1, 128, 8191), (1, 8, 4, 2, 32, 0)]:
+            (1, 8192, 16, 1, 128, 8191), (1, 8, 4, 2, 32, 0),
+            (2, 32, 4, 2, 64, [3, 9]), (2, 32, 4, 2, 64, [31, 0])]:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(gen, (B, H, hd), dt)
             kc = randn(gen, (B, S, KV, hd), dt)
@@ -2797,6 +2811,89 @@ def phase12(ref):
                       serve=serve, dry_run=dry)
 
 
+# ----------------------------------------------------------- phase 13 ----
+# the example twins (path 8): each through its main(argv) on the card, in
+# the reference's order; latency_study on a 20,000-query trace (its default
+# of 100,000 prices the same table five times longer)
+TWIN_RUNS = (("quickstart", []), ("serve_parm", []),
+             ("latency_study", ["--n", "20000"]), ("serve_lm", []),
+             ("train_parity_lm", []))
+TWIN_KERNELS = {"quickstart": ("parity_encode", "parity_decode"),
+                "serve_parm": ("parity_encode", "parity_decode"),
+                "latency_study": (),
+                "serve_lm": ("flash_attention", "decode_attention"),
+                "train_parity_lm": ("flash_attention",)}
+
+
+def check_twin(name, out):
+    """Each twin's result, as its reference example's user reads it."""
+    if name == "quickstart":
+        ok = out["A_a"] >= 0.95
+        log(f"[twins] quickstart: A_a={out['A_a']:.3f}, X2's true class "
+            f"{out['true_class']} (label {out['label']}), rebuilt class "
+            f"{out['reconstructed_class']}, L2 gap {out['l2_gap']:.3f}")
+    elif name == "serve_parm":
+        by = out["completed_by"]
+        ok = (out["answered"] == out["n"] == sum(by.values())
+              and by.get("parity", 0) > 0
+              and out["accuracy"].get("parity", 0.0) > 0.1)
+        log(f"[twins] serve_parm: {out['answered']} of {out['n']} answered "
+            f"in {out['wall_s']:.2f} s, completed_by={by}, accuracy "
+            f"{out['accuracy']}, p50 {out['p50_ms']:.2f} ms p99 "
+            f"{out['p99_ms']:.2f} ms; sim {out['sim_summary']}")
+    elif name == "latency_study":
+        ok = len(out) == 5 and all(math.isfinite(r["p999_ms"])
+                                   for r in out.values())
+        log(f"[twins] latency_study: p99.9 by strategy "
+            f"{ {k: round(r['p999_ms'], 1) for k, r in out.items()} } ms")
+    elif name == "serve_lm":
+        n = len(out["requests"])
+        ok = out["done"] == n > 0 and out["reconstructed_steps"] > 0
+        log(f"[twins] serve_lm: {out['done']} of {n} requests done, "
+            f"reconstructed steps {out['reconstructed_steps']}, tokens/s "
+            f"{out['tokens_per_s']:.1f}, inter-token p50 "
+            f"{out['inter_token_p50_ms']:.1f} ms; sim step "
+            f"{out['sim_step_ms']:.2f} ms, coded {out['sim_coded']}")
+    else:
+        mse = out["parity_mse"]
+        first, last = np.mean(mse[:5]), np.mean(mse[-5:])
+        ok = (all(math.isfinite(v) for v in mse + out["deployed_losses"])
+              and last < first)
+        log(f"[twins] train_parity_lm: deployed loss "
+            f"{out['deployed_losses'][-1]:.3f}, parity MSE first-5 mean "
+            f"{first:.4f} -> last-5 {last:.4f}, agreement "
+            f"{out['agreement']:.3f} (random {out['random']:.4f})")
+    if not ok:
+        raise AssertionError(f"twin {name}: {out}")
+
+
+def phase13():
+    """The example twins (path 8): (main-path launches, summary)."""
+    import importlib
+    for c in ops.counters().values():
+        c.reset()
+    summary = {}
+    for name, argv in TWIN_RUNS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        before = counts()
+        t0 = time.perf_counter()
+        out = mod.main([*argv, "--device", DEV])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in counts().items() if
+                    v > before[k]}
+        check_twin(name, out)
+        missing = [k for k in TWIN_KERNELS[name] if not launches.get(k)]
+        log(f"[twins] {' '.join([name, *argv])}: {wall:.2f} s on "
+            f"{smi_line()}, launches {launches}")
+        if missing:
+            raise AssertionError(f"twin {name} launched none of {missing}")
+        summary[name] = {"seconds": wall, "launches": launches}
+    path = counts()
+    log(f"[twins] main-path launches {path}")
+    return path, summary
+
+
 def head_entry(row):
     """A kernel's measurements at another model's heads (phase 2)."""
     return {"shape": row["shape"], "max_abs_err": row["max_abs_err"],
@@ -2835,6 +2932,8 @@ PATH4 = ("parity_encode", "parity_decode", "flash_attention",
 PATH5 = ("flash_attention", "decode_attention")
 PATH6 = ("flash_attention", "decode_attention")
 PATH7 = ("flash_attention", "decode_attention")
+PATH8 = ("parity_encode", "parity_decode", "flash_attention",
+         "decode_attention")
 
 
 def main():
@@ -2955,6 +3054,17 @@ def main():
     t12 = time.perf_counter()
     log(f"[time] phase 12 distributed: {t12 - t11:.1f} s")
 
+    # ---- path 8: the example twins (phase 13)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path8, twins = phase13()
+    t13 = time.perf_counter()
+    log(f"[time] phase 13 twins: {t13 - t12:.1f} s")
+    missing = [name for name in PATH8 if path8[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the twins' path: "
+                             f"{missing}")
+
     kernels = []
     for name in ("parity_encode", "fused_encode_forward", "parity_decode",
                  "multigroup_decode", "learned_project", "berrut_encode",
@@ -2963,7 +3073,7 @@ def main():
                    "lm_serving": path3[name], "lm_training": path4[name],
                    "moe_ssm_serving": path5[name],
                    "cross_serving": path6[name],
-                   "distributed": path7[name]}
+                   "distributed": path7[name], "twins": path8[name]}
         kernels.append(kernel_entry(name, rows[name], sum(by_path.values()),
                                     by_path))
     log(json.dumps({"summary": {
@@ -2983,6 +3093,7 @@ def main():
         "moe_ssm_hybrid": hybrid,
         "cross": cross,
         "distributed": distributed,
+        "twins": twins,
         "seconds": time.perf_counter() - t0}}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))

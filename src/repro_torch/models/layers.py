@@ -31,7 +31,13 @@ KV heads (``_local_heads``).
 Decode writes the new key/value row into the cache IN PLACE (the JAX
 package rebinds an immutable pool): callers that need the old cache clone
 it.  The vector-``pos`` write is an ``index_put_`` of one row per batch row,
-so every other row stays bit-identical.
+so every other row stays bit-identical.  A cache that is a DTensor (sharded
+along its sequence by ``ShardingRules.cache_specs``) takes an elementwise
+select over a slot mask on each rank's shard instead (``_write_slot``):
+DTensor would run a slice assignment on a gathered copy and refuses an
+``index_put_`` that needs a placement change.  Decode attention over such a
+cache keeps its scores on their sequence shards (``_decode_sharded``): a
+local max and sum, all-reduced, as flash decoding combines its splits.
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ATTN_BACKENDS
@@ -309,7 +316,6 @@ def attention_decode_xla(q, k_cache, v_cache, pos, *, window=0):
     k_cache = constrain(k_cache, ("batch", "seq", "kv_heads", None))
     v_cache = constrain(v_cache, ("batch", "seq", "kv_heads", None))
     qg = group_heads(q, KV)[:, 0] * hd ** -0.5
-    s = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k_cache.float())
     kpos = torch.arange(S, device=q.device)
     if isinstance(pos, torch.Tensor) and pos.ndim:     # per-row [B]
         pos = pos.to(q.device)
@@ -317,15 +323,76 @@ def attention_decode_xla(q, k_cache, v_cache, pos, *, window=0):
             valid = kpos[None, :] < torch.clamp(pos + 1, max=S)[:, None]
         else:
             valid = kpos[None, :] <= pos[:, None]
-        s = torch.where(valid[:, None, None, :], s, NEG_INF)
     else:
         pos = int(pos)
         valid = kpos < min(pos + 1, S) if window else kpos <= pos
+    if isinstance(k_cache, DTensor):
+        out = _decode_sharded(qg, k_cache, v_cache,
+                              valid.expand(B, S).contiguous())
+        return out.reshape(B, 1, H, hd).to(q.dtype)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k_cache.float())
+    if valid.ndim == 2:
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    else:
         s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def pad_seq(t, before, after):
+    """``t`` [B, S, ...] with zero rows padded along S.  A DTensor whose S
+    is whole on every rank pads each rank's shard: torch 2.11's
+    redistribution planner fails on ``F.pad`` of a DTensor."""
+    widths = (0, 0) * (t.ndim - 2) + (before, after)
+    if isinstance(t, DTensor) and Shard(1) not in t.placements:
+        pl = list(t.placements)
+        return local_map(lambda x: F.pad(x, widths), out_placements=pl,
+                         in_placements=(pl,), device_mesh=t.device_mesh)(t)
+    return F.pad(t, widths)
+
+
+def _replicated(t, mesh):
+    """A plain tensor that every rank holds whole, as a replicated DTensor
+    (``local_map`` then slices it locally, with no collective)."""
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _decode_sharded(qg, k_cache, v_cache, valid):
+    """:func:`attention_decode_xla` on a DTensor cache [B, S, KV, hd] whose
+    batch, sequence and KV heads may each be sharded: each rank scores its
+    own slots, and the softmax's max and sum and the P.V product are
+    all-reduced over the mesh dimensions that shard the sequence (the
+    reference's compiled step keeps the scores sharded in the same way).
+    ``qg`` [B, KV, rep, hd] (scaled), ``valid`` [B, S] -> [B, KV, rep, hd]
+    fp32."""
+    mesh, pl = k_cache.device_mesh, tuple(k_cache.placements)
+    seq_dims = [i for i, p in enumerate(pl) if p == Shard(1)]
+    # per mesh dim: the query and the output follow the cache's batch and
+    # KV-head sharding (dims 0 and 2 of the cache, 0 and 1 of the query)
+    q_pl = [Shard({0: 0, 2: 1}[p.dim]) if p.is_shard() and p.dim != 1
+            else Replicate() for p in pl]
+    valid_pl = [p if p.is_shard() and p.dim in (0, 1) else Replicate()
+                for p in pl]
+
+    def reduce(t, op):
+        for d in seq_dims:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, d)))
+        return t
+
+    def local(q, k, v, ok):
+        s = torch.einsum("bgrd,bkgd->bgrk", q.float(), k.float())
+        s = torch.where(ok[:, None, None, :], s, NEG_INF)
+        e = torch.exp(s - reduce(s.amax(dim=-1, keepdim=True), "max"))
+        p = e / reduce(e.sum(dim=-1, keepdim=True), "sum")
+        return reduce(torch.einsum("bgrk,bkgd->bgrd", p.to(v.dtype).float(),
+                                   v.float()), "sum")
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, pl, pl, valid_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        qg, k_cache, v_cache, _replicated(valid, mesh))
 
 
 # --------------------------------------------------------------------------
@@ -446,16 +513,17 @@ def self_attention_decode(cfg, p, x, cache, pos, rope_cs, *, window=0,
         k = apply_rope(k, cos, sin)
     k_cache, v_cache = cache["k"], cache["v"]
     S = k_cache.shape[1]
-    if vector:
-        pos = pos.to(device=x.device, dtype=torch.long)
-        slot = pos % S if window else pos
+    pos = pos.to(device=x.device, dtype=torch.long) if vector else int(pos)
+    slot = pos % S if window else pos
+    if isinstance(k_cache, DTensor):
+        _write_slot(k_cache, k, slot)
+        _write_slot(v_cache, v, slot)
+    elif vector:
         # one row per batch row: the others stay bit-identical
         rows = torch.arange(pos.shape[0], device=x.device)
         k_cache.index_put_((rows, slot), k[:, 0])
         v_cache.index_put_((rows, slot), v[:, 0])
     else:
-        pos = int(pos)
-        slot = pos % S if window else pos
         k_cache[:, slot:slot + 1] = k
         v_cache[:, slot:slot + 1] = v
     if backend == "kernels":
@@ -467,6 +535,29 @@ def self_attention_decode(cfg, p, x, cache, pos, rope_cs, *, window=0,
     else:
         o = attention_decode_xla(q, k_cache, v_cache, pos, window=window)
     return merge_heads(o) @ p["wo"], cache
+
+
+def _write_slot(cache, row, slot):
+    """``cache[b, slot[b]] = row[b, 0]`` for every batch row b (``slot`` an
+    int or a [B] tensor) on a DTensor cache [B, S, KV, hd], in place and
+    without a placement change: on each rank's shard, an elementwise select
+    over a slot mask, then ``copy_`` between tensors placed alike.  The new
+    row takes the cache's placements with the sequence replicated (one slot
+    has nothing to shard)."""
+    B, S = cache.shape[:2]
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    kpos = torch.arange(S, device=row.device)
+    if isinstance(slot, torch.Tensor):
+        hit = kpos[None, :] == slot[:, None]
+    else:
+        hit = (kpos == slot)[None, :].expand(B, S)
+    row_pl = [Replicate() if p == Shard(1) else p for p in pl]
+    new = local_map(lambda c, r, m: torch.where(m, r, c),
+                    out_placements=list(pl), in_placements=(pl, row_pl, pl),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        cache, row.to(cache.dtype),
+        _replicated(hit[:, :, None, None].contiguous(), mesh))
+    cache.copy_(new)
 
 
 def init_attn_cache(cfg, batch, seq_len, *, device="cpu", lead=()):

@@ -17,18 +17,25 @@ reduced chunk only (``ROADMAP.md`` §C).
 
 The reference's logical sharding constraints are kept (the identity without
 launcher rules); a head split of a width is constrained before the reshape,
-as in ``models/layers.py``.
+as in ``models/layers.py``.  On DTensors the chunked scan and the decode
+recurrence run on each rank's shard of the batch and the heads
+(``_local_batch_heads``), where the reference constrains the scan's
+carries.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed import logical
 from repro_torch.distributed.logical import constrain
-from repro_torch.models.layers import _dense, make_norm, rms_norm, \
-    torch_dtype
+from repro_torch.models.layers import _dense, make_norm, pad_seq, \
+    rms_norm, torch_dtype
 
 
 def _dims(cfg):
@@ -80,7 +87,7 @@ def init_mamba(cfg, gen, *, device="cpu", lead=()):
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x [B, L, C]; w [W, C]."""
     W, L = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = pad_seq(x, W - 1, 0)
     y = sum(xp[:, i:i + L, :] * w[i] for i in range(W))
     return F.silu(y + b)
 
@@ -90,6 +97,48 @@ def _split_in(cfg, p, x):
     zxbcdt = x @ p["in_proj"]
     z, xBC, dt = torch.split(zxbcdt, [di, conv_dim, H], dim=-1)
     return z, xBC, dt
+
+
+def _chunked_scan(Q, dx, Bh, Ch, loga, h=None):
+    """The chunked SSD on [B, L, H, ...] tensors (L a multiple of Q): the
+    masked quadratic form within each chunk of Q steps and the state
+    carried from chunk to chunk.  ``h`` is the initial state [B, H, N, P]
+    (zeros when None).  Returns (y [B, L, H, P], final state)."""
+    B, L, H, P = dx.shape
+    N = Bh.shape[-1]
+    nc = L // Q
+    # chunk views [B, nc, Q, ...]
+    dxc = dx.reshape(B, nc, Q, H, P)
+    Bh = Bh.reshape(B, nc, Q, H, N)
+    Ch = Ch.reshape(B, nc, Q, H, N)
+    cum = torch.cumsum(loga.reshape(B, nc, Q, H), dim=2)         # [B,nc,Q,H]
+
+    # ---- intra-chunk (quadratic, parallel over chunks) ----
+    # scores[b,c,h,i,j] = (C_i . B_j) * exp(cum_i - cum_j), i >= j
+    cb = torch.einsum("bcihn,bcjhn->bchij", Ch, Bh)
+    dec = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    dec = dec.permute(0, 1, 4, 2, 3)                             # [B,nc,H,i,j]
+    ii = torch.arange(Q, device=dx.device)
+    mask = ii[:, None] >= ii[None, :]
+    scores = torch.where(mask, cb * dec, 0.0)
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", scores, dxc)
+
+    # ---- chunk state + inter-chunk recurrence ----
+    seg = torch.exp(cum[:, :, -1:, :] - cum)                     # exp(cum_Q - cum_j)
+    states = torch.einsum("bcjhn,bcjh,bcjhp->bchnp", Bh, seg, dxc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                    # [B,nc,H]
+
+    if h is None:
+        h = torch.zeros((B, H, N, P), dtype=torch.float32, device=dx.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                        # [B,nc,H,N,P]
+
+    inter_dec = torch.exp(cum)                                   # [B,nc,Q,H]
+    y_inter = torch.einsum("bcihn,bcih,bchnp->bcihp", Ch, inter_dec, h_prevs)
+    return (y_intra + y_inter).reshape(B, L, H, P), h
 
 
 def ssd_fwd(cfg, p, x, *, init_state=None, return_state=False):
@@ -102,9 +151,8 @@ def ssd_fwd(cfg, p, x, *, init_state=None, return_state=False):
     Q = min(cfg.ssm_chunk, L0)
     pad = (-L0) % Q
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
+        x = pad_seq(x, 0, pad)
     L = L0 + pad
-    nc = L // Q
 
     z, xBC, dt = _split_in(cfg, p, x)
     if pad:
@@ -124,42 +172,13 @@ def ssd_fwd(cfg, p, x, *, init_state=None, return_state=False):
     dx = xs.float() * delta[..., None]                           # Δ·x
 
     rep = H // G
-    # chunk views [B, nc, Q, ...]; B and C repeated over the heads of a group
-    dxc = dx.reshape(B, nc, Q, H, P)
-    Bh = _heads(Bm.float().reshape(B, nc, Q, G, N), rep)
-    Ch = _heads(Cm.float().reshape(B, nc, Q, G, N), rep)
-    cum = torch.cumsum(loga.reshape(B, nc, Q, H), dim=2)         # [B,nc,Q,H]
-
-    # ---- intra-chunk (quadratic, parallel over chunks) ----
-    # scores[b,c,h,i,j] = (C_i . B_j) * exp(cum_i - cum_j), i >= j
-    cb = constrain(torch.einsum("bcihn,bcjhn->bchij", Ch, Bh),
-                   ("batch", None, "heads", None, None))
-    dec = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
-    dec = dec.permute(0, 1, 4, 2, 3)                             # [B,nc,H,i,j]
-    ii = torch.arange(Q, device=x.device)
-    mask = ii[:, None] >= ii[None, :]
-    scores = torch.where(mask, cb * dec, 0.0)
-    y_intra = torch.einsum("bchij,bcjhp->bcihp", scores, dxc)
-
-    # ---- chunk state + inter-chunk recurrence ----
-    seg = torch.exp(cum[:, :, -1:, :] - cum)                     # exp(cum_Q - cum_j)
-    states = torch.einsum("bcjhn,bcjh,bcjhp->bchnp", Bh, seg, dxc)
-    chunk_decay = torch.exp(cum[:, :, -1, :])                    # [B,nc,H]
-
-    h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
-         if init_state is None else init_state.float())
-    h = constrain(h, ("batch", "heads", None, None))
-    h_prevs = []
-    for c in range(nc):
-        h_prevs.append(h)
-        h = constrain(h * chunk_decay[:, c, :, None, None] + states[:, c],
-                      ("batch", "heads", None, None))
-    h_prevs = torch.stack(h_prevs, dim=1)                        # [B,nc,H,N,P]
-
-    inter_dec = torch.exp(cum)                                   # [B,nc,Q,H]
-    y_inter = torch.einsum("bcihn,bcih,bchnp->bcihp", Ch, inter_dec, h_prevs)
-
-    y = (y_intra + y_inter).reshape(B, L, H, P)
+    # B and C repeated over the heads of a group: [B, L, H, N]
+    Bh = _heads(Bm.float().reshape(B, L, G, N), rep)
+    Ch = _heads(Cm.float().reshape(B, L, G, N), rep)
+    args = (dx, Bh, Ch, loga) if init_state is None else \
+        (dx, Bh, Ch, loga, init_state.float())
+    y, h = _local_batch_heads(functools.partial(_chunked_scan, Q), args,
+                              (2, 2, 2, 2, 1)[:len(args)], (2, 1))
     y = constrain(y + p["D"][None, None, :, None] * xs.float(),
                   ("batch", None, "heads", None))
     y = y.reshape(B, L, di)
@@ -186,6 +205,35 @@ def init_ssm_cache(cfg, batch, *, device="cpu", lead=()):
                                 dtype=torch_dtype(cfg), device=device)}
 
 
+def _recurrence(state, a, Bh, dx, Ch):
+    """h' = a·h + Δx ⊗ B and y = C·h', per (batch row, head)."""
+    h = state * a[..., None, None] + torch.einsum("bhn,bhp->bhnp", Bh, dx)
+    return h, torch.einsum("bhn,bhnp->bhp", Ch, h)
+
+
+def _local_batch_heads(fn, args, heads_at, out_heads_at):
+    """``fn(*args)`` -> two outputs, on each rank's local shard of the
+    batch (dim 0 of every tensor) and the heads (dim ``heads_at[i]`` of
+    ``args[i]``, ``out_heads_at[j]`` of output j) when the first arg is a
+    DTensor under launcher rules: the SSD is independent per (batch row,
+    head), and torch 2.11 refuses the batched products of an ``einsum``
+    that would flatten two sharded dimensions.  Which mesh axes shard the
+    batch and the heads is the reference's spec arithmetic."""
+    x = args[0]
+    if logical.state()[0] is None or not isinstance(x, DTensor):
+        return fn(*args)
+    spec = logical.logical_spec((x.shape[0], x.shape[heads_at[0]]),
+                                ("batch", "heads"))
+
+    def pl(d):                 # placements with the heads at tensor dim d
+        return logical.placements(
+            (spec[0],) + (None,) * (d - 1) + (spec[1],), x.device_mesh)
+    return local_map(fn, out_placements=tuple(pl(d) for d in out_heads_at),
+                     in_placements=tuple(pl(d) for d in heads_at),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def ssd_decode(cfg, p, x, cache):
     """One-step recurrence. x [B, 1, D] -> (y [B, 1, D], new cache); the
     new state and conv tail are new tensors (``cache`` is only read)."""
@@ -210,9 +258,8 @@ def ssd_decode(cfg, p, x, cache):
     delta = F.softplus(dt[:, 0].float() + p["dt_bias"])
     a = torch.exp(-torch.exp(p["A_log"]) * delta)                # [B,H]
     dx = xs * delta[..., None]                                   # [B,H,P]
-    h = cache["ssm"] * a[..., None, None] + \
-        torch.einsum("bhn,bhp->bhnp", Bh, dx)
-    y = torch.einsum("bhn,bhnp->bhp", Ch, h)
+    h, y = _local_batch_heads(_recurrence, (cache["ssm"], a, Bh, dx, Ch),
+                              (1,) * 5, (1, 1))
     y = y + p["D"][None, :, None] * xs
     y = y.reshape(B, 1, di)
     y = rms_norm((y * F.silu(z.float())).to(x.dtype), p["gate_norm"])

@@ -39,6 +39,8 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.convert import resolve_device, tree_leaves
@@ -172,8 +174,7 @@ def _layer_fwd(cfg, spec, p, x, ctx):
                 k, v = k[:, -W:], v[:, -W:]
             pad = ctx["cache_len"] - k.shape[1]
             if pad > 0:
-                k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-                v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+                k, v = L.pad_seq(k, 0, pad), L.pad_seq(v, 0, pad)
             cache["attn"] = {"k": k, "v": v}
     elif spec["mixer"] == "mamba":
         h = L.apply_norm(cfg, p["mamba"]["norm"], x)
@@ -307,9 +308,52 @@ def _embed(cfg, params, tokens=None, embeds=None):
 
 def embed_tokens(cfg, params, tokens):
     """Public: token -> embedding (used by the ParM embedding-space
-    encoder)."""
-    tokens = torch.as_tensor(tokens, device=params["embed"].device)
-    return params["embed"][tokens.long()]
+    encoder).  A table that is a DTensor sharded along the vocabulary is
+    read on its shards (:func:`_embed_sharded`): indexing it would gather
+    the whole table first."""
+    table = params["embed"]
+    tokens = torch.as_tensor(tokens, device=table.device)
+    if isinstance(table, DTensor) and Shard(0) in table.placements:
+        return _embed_sharded(table, tokens)
+    return table[tokens.long()]
+
+
+def _embed_sharded(table, tokens):
+    """The lookup on each rank's vocabulary shard, as ``training/loss``
+    treats a sharded vocabulary: ids outside the shard are masked to zero
+    rows, and the rows are summed over the vocabulary's mesh dimensions
+    (one non-zero term each, so the sum is exact).  The embedding width is
+    gathered first where it is sharded (FSDP); the tokens keep their batch
+    sharding, so a rank's gradient of its table shard is partial over the
+    mesh dimensions that shard them."""
+    mesh, pl = table.device_mesh, tuple(table.placements)
+    if not isinstance(tokens, DTensor):
+        tokens = L._replicated(tokens, mesh)
+    tok_pl = [Replicate() if pl[i] == Shard(0) else p
+              for i, p in enumerate(tokens.placements)]
+    vocab_dims = [i for i, p in enumerate(pl) if p == Shard(0)]
+    out_pl = [Partial() if i in vocab_dims else p
+              for i, p in enumerate(tok_pl)]
+    table_pl = [p if p == Shard(0) else Replicate() for p in pl]
+    grad_pl = [p if p == Shard(0) else Partial() if tok.is_shard()
+               else Replicate() for p, tok in zip(table_pl, tok_pl)]
+
+    def local(rows, ids):
+        n = rows.shape[0]
+        shard = 0                     # this rank's block, nested in mesh order
+        for d in vocab_dims:
+            shard = shard * mesh.size(d) + mesh.get_local_rank(d)
+        ids = ids.long() - shard * n
+        inside = (ids >= 0) & (ids < n)
+        got = rows[torch.where(inside, ids, 0)]
+        return torch.where(inside[..., None], got, torch.zeros_like(got))
+    rows = local_map(local, out_placements=out_pl,
+                     in_placements=(table_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+    # summed here, not left partial: torch 2.11 carries a partial sum into
+    # the next projection and then fails to add its bias
+    return rows.redistribute(mesh, tok_pl)
 
 
 def _logits(cfg, params, x, logits_pspec=None):

@@ -2,7 +2,8 @@
 ("data", "model") mesh over four gloo processes, and the dry run.
 
 * A sharded forward and one sharded ``launch.steps.make_train_step``
-  (``shard_logits=True``) on reduced qwen2-0.5b and deepseek-moe-16b, placed
+  (``shard_logits=True``) on reduced qwen2-0.5b, deepseek-moe-16b and
+  mamba2-780m (the chunked SSD on each rank's batch and heads), placed
   by ``ShardingRules``, against the unsharded port in the same processes:
   logits atol 2e-5, loss rtol 1e-5, updated parameters atol 1e-6, fp32.
   deepseek's MoE layers take the expert-parallel path there (the model axis
@@ -151,7 +152,8 @@ def _sharded_model(mesh, arch):
     return out
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-moe-16b",
+                                  "mamba2-780m"])
 def test_sharded_forward_and_train_step_equal_unsharded(arch, tmp_path):
     out = _run("_sharded_model", tmp_path, arch)
     n = len([k for k in out if k.startswith("p")])
@@ -163,6 +165,126 @@ def test_sharded_forward_and_train_step_equal_unsharded(arch, tmp_path):
     for i in range(n):
         np.testing.assert_allclose(out[f"s{i}"], out[f"p{i}"],
                                    atol=PARAM_TOL, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# sharded decode: the cache write and what the step gathers
+# --------------------------------------------------------------------------
+PROMPT, CACHE_LEN, DECODE_STEPS = 8, 16, 4
+
+
+def _positions(step, vector, batch):
+    """Step ``step``'s position: one int, or per-row positions that differ
+    between rows (odd rows one ahead, so their slots differ too)."""
+    if not vector:
+        return PROMPT + step
+    return torch.tensor([PROMPT + step + b % 2 for b in range(batch)])
+
+
+def _sharded_decode(mesh, arch, vector, window):
+    """Prefill and ``DECODE_STEPS`` greedy decode steps, unsharded and on
+    ``mesh`` (parameters, tokens and cache placed by ``ShardingRules``, the
+    cache at its ``cache_specs``), fed the same tokens; the first sharded
+    step also runs inside a ``roofline.Trace``, whose all-gathers come back
+    as shape rows beside the embedding table's rows and the lead of one
+    layer's scores.  A ``window`` makes the cache a ring of that many
+    slots, which the prompt fills, so every decode step wraps."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import tree_leaves
+    from repro_torch.distributed.logical import (constrain_spec,
+                                                 logical_rules,
+                                                 rules_for_mesh)
+    from repro_torch.distributed.sharding import ShardingRules, _zip_map
+    from repro_torch.launch.roofline import Trace
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch, reduced=True).replace(attn_backend="torch",
+                                                 sliding_window=window)
+    cache_len = window or CACHE_LEN
+    params = T.init_params(cfg, 0, device="cpu")
+    B = 4
+    prompt = torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (B, PROMPT)), dtype=torch.int32)
+    out = {}
+    with torch.no_grad():
+        logits, cache = T.prefill(cfg, params, tokens=prompt,
+                                  cache_len=cache_len)
+        out["logits0"] = _full(logits)
+        feed = []
+        for i in range(DECODE_STEPS):
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            feed.append(tok)
+            logits, cache = T.decode_step(cfg, params, cache,
+                                          _positions(i, vector, B),
+                                          token=tok)
+            out[f"logits{i + 1}"] = _full(logits)
+    for j, leaf in enumerate(tree_leaves(cache)):
+        out[f"cache{j}"] = _full(leaf)
+
+    rules = ShardingRules(mesh, fsdp_params=False)
+    sparams = rules.distribute(params, rules.params(params))
+    place = rules.batch_specs({"t": prompt})["t"]
+    lrules, sizes = rules_for_mesh(mesh)
+    lrules["fsdp_params"] = False
+    with logical_rules(lrules, sizes, mesh), implicit_replication(), \
+            torch.no_grad():
+        logits, cache = T.prefill(cfg, sparams, tokens=rules.distribute(
+            prompt, place), cache_len=cache_len)
+        out["sharded_logits0"] = _full(logits)
+        cache = _zip_map(constrain_spec, cache, rules.cache_specs(cache))
+        for i, tok in enumerate(feed):
+            with Trace() as trace:
+                logits, cache = T.decode_step(
+                    cfg, sparams, cache, _positions(i, vector, B),
+                    token=rules.distribute(tok, place))
+            if i == 0:
+                out["gathers"] = np.array(
+                    [tuple(shape) + (0,) * (5 - len(shape))
+                     for c in trace.collectives if c.kind == "all-gather"
+                     for shape, _ in c.results] + [(0,) * 5])
+            out[f"sharded_logits{i + 1}"] = _full(logits)
+    for j, leaf in enumerate(tree_leaves(cache)):
+        out[f"sharded_cache{j}"] = _full(leaf)
+    out["table_rows"] = np.array(cfg.vocab)
+    out["slots"] = np.array(cache_len)
+    out["scores_lead"] = np.array([B, cfg.n_kv_heads,
+                                   cfg.n_heads // cfg.n_kv_heads])
+    return out
+
+
+@pytest.mark.parametrize("arch,vector,window", [
+    ("qwen2-0.5b", False, 0), ("qwen2-0.5b", True, 0),
+    ("jamba-1.5-large-398b", False, 0), ("jamba-1.5-large-398b", True, 0),
+    ("qwen2-0.5b", True, PROMPT),
+], ids=["qwen2-scalar", "qwen2-vector", "jamba-scalar", "jamba-vector",
+        "qwen2-ring"])
+def test_sharded_decode_equals_unsharded(arch, vector, window, tmp_path):
+    """A sharded prefill and four decode steps give the unsharded port's
+    logits and caches: every step's new key/value row reaches the
+    sequence-sharded cache (slots 8-11, and 9-12 on the odd rows of the
+    vector case; with a ring of 8 slots, slots 0-3 and 1-4 again).  Caches compare at the logits' tolerance: the sharded
+    projections sum in another order.  The traced step gathers neither the
+    embedding table (a result of ``vocab`` rows) nor a layer's scores
+    [B, KV, rep, keys] (a 4-D result of that lead whose last dimension
+    divides the cache's length, which the head dim 64 does not): each
+    gather it makes is of an activation row or a projection."""
+    out = _run("_sharded_decode", tmp_path, arch, vector, window)
+    for i in range(DECODE_STEPS + 1):
+        np.testing.assert_allclose(out[f"sharded_logits{i}"],
+                                   out[f"logits{i}"], atol=FWD_TOL, rtol=0)
+    n = len([k for k in out if k.startswith("cache")])
+    assert n > 0
+    for j in range(n):
+        want, got = out[f"cache{j}"], out[f"sharded_cache{j}"]
+        np.testing.assert_array_equal(got == 0, want == 0)
+        np.testing.assert_allclose(got, want, atol=FWD_TOL, rtol=0)
+    gathers = out["gathers"][:-1]
+    assert not (gathers == out["table_rows"]).any(), gathers
+    scores = ((gathers[:, :3] == out["scores_lead"]).all(1)
+              & (gathers[:, 3] > 0) & (int(out["slots"]) % np.maximum(
+                  gathers[:, 3], 1) == 0) & (gathers[:, 4] == 0))
+    assert not scores.any(), gathers
 
 
 # --------------------------------------------------------------------------
