@@ -8,8 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. device    — print the card's name and power limit, build the CUDA kernels
                from ``src/repro_torch/csrc`` (``nvcc``, ``sm_90a``);
 2. kernels   — hold each kernel against its plain PyTorch version on the card
-               (test sweeps in fp32 and bf16, B2's also through the
-               bounds-checked build, then the main-path shapes) and time it
+               (test sweeps in fp32 and bf16, B1's, B2's and B4's also
+               through the bounds-checked build, then the main-path shapes;
+               B1, B3 and B4 also as their op and scheme calls, each one
+               launch and no other device operation) and time it
                beside the plain version, one PyTorch library call for the
                same function, its bound, and an empty launch;
 3. serve     — the paper's MLP (784-200-100-10) trained on the card, ``sum``
@@ -305,6 +307,10 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+    release = [ln for ln in nvcc.splitlines() if "release" in ln]
+    log(f"[device] nvcc: {release}")
     t0 = time.perf_counter()
     _build.library()
     log(f"[device] kernels built and loaded in "
@@ -358,9 +364,10 @@ def sweep_kernels():
                     (2, 4, 784), (2, 1, 784), (2, 1, 256)]:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(gen, (k, B, F), dt)
-            c = torch.arange(1.0, k + 1.0, device=DEV)
+            c = np.arange(1.0, k + 1.0, dtype=np.float32)   # host values
             check_close(f"encode {k,B,F,dt}", ops.parity_encode_op(q, c),
-                        ref.parity_encode_ref(q, c), tol(dt), tol(dt))
+                        ref.parity_encode_ref(q, torch.tensor(c, device=DEV)),
+                        tol(dt), tol(dt))
             n += 1
     for k, B, V in [(2, 4, 100), (4, 2, 1000), (3, 8, 513), (2, 4, 10),
                     (2, 1, 10)]:
@@ -381,25 +388,7 @@ def sweep_kernels():
     log(f"[kernels] checked build (-DREPRO_CHECKED -lineinfo) built and "
         f"loaded in {time.perf_counter() - t0:.2f} s")
     n += sweep_fused(gen)
-    for G, k, B, V in [(1, 2, 1, 9), (5, 3, 4, 100), (4, 4, 2, 257),
-                       (1000, 2, 1, 10)]:
-        for dt in (torch.float32, torch.bfloat16):
-            po = randn(gen, (G, B, V), dt)
-            outs = randn(gen, (G, k, B, V), dt)
-            idxs = torch.arange(G, device=DEV) % k
-            for coeffs in (torch.arange(1.0, k + 1.0, device=DEV),
-                           randn(gen, (G, k), torch.float32) + 2.0):
-                cg = coeffs if coeffs.ndim == 2 else \
-                    coeffs[None].expand(G, k)
-                avail = cg * (torch.arange(k, device=DEV)[None]
-                              != idxs[:, None])
-                inv = 1.0 / torch.gather(cg, 1, idxs[:, None])
-                cmat = torch.cat([avail, inv], 1)
-                check_close(f"multigroup {G,k,B,V,dt}",
-                            ops.multigroup_decode_op(po, outs, idxs, coeffs),
-                            ref.multigroup_decode_ref(po, outs, cmat),
-                            tol(dt) * k, 2e-2)
-                n += 1
+    n += sweep_coded(gen)
     # B5 (r = 11 spills into a second row group) and B6 (the approxifer
     # shapes, flattened to [k, B, F]); tolerance 4x the dtype's, as in the
     # reference's tests
@@ -523,23 +512,112 @@ def sweep_fused(gen):
     return n
 
 
-def one_launch(label, fn, kernel):
-    """Raise unless 20 calls of ``fn`` issue 20 launches of ``kernel`` and
-    no other device operation.  The calls are traced in two windows and
-    each operation counted at its larger count: a trace now and then loses
-    one kernel event (a window of 20 B8 calls read 19 once), which the
-    other window shows; an extra or missing operation of the calls
-    themselves shows in both."""
-    first, second = device_ops(fn), device_ops(fn)
-    seen = {key: max(first.get(key, 0), second.get(key, 0))
-            for key in {**first, **second}}
+# B1's sweep (k, r, B, F): the k = 2, 3, 4 instances and the generic one
+# (k = 5, 6, 16, 20, 256; r * k = 256 at the cap), r = 1-4 and 16 rows,
+# ragged F, B = 1, the main path's [2, 1, 784] at r = 1 and 2; each also
+# unaligned
+ENCODE_SWEEP = [(2, 1, 1, 784), (2, 2, 1, 784), (3, 3, 2, 257),
+                (4, 2, 8, 1000), (6, 1, 2, 257), (5, 4, 3, 1001),
+                (2, 1, 4, 3), (16, 16, 1, 9), (4, 1, 4, 8192),
+                (20, 3, 2, 257), (256, 1, 1, 40)]
+# B4's sweep (G, k, B, V): ragged V, the A_d shape (G = 1000), G past one
+# launch's capacity (1024 groups with shared coefficients; 2709 of k = 2,
+# 478 of k = 16 with per-group ones), k = 16, a long row that gridDim.x
+# splits, k = 1, and the serving drains' G = 2
+MG_SWEEP = [(1, 2, 1, 9), (5, 3, 4, 100), (4, 4, 2, 257), (1000, 2, 1, 10),
+            (6000, 2, 1, 10), (2001, 3, 1, 10), (40, 16, 1, 10),
+            (1000, 16, 1, 10), (3, 2, 4, 20000), (7, 1, 1, 33),
+            (2, 2, 1, 10)]
+
+
+def decode_rows(idxs, coeffs, G, k):
+    """The plain version's [G, k + 1] decode rows, built on the card with
+    PyTorch ops and apart from the wrapper's host rows: ``c * [i != j]``
+    and ``1 / c_j``, coeffs [k] or [G, k]."""
+    j = torch.as_tensor(np.asarray(idxs), device=DEV)
+    c = torch.as_tensor(np.asarray(coeffs, np.float32), device=DEV)
+    c = c.expand(G, k)
+    avail = c * (torch.arange(k, device=DEV)[None] != j[:, None])
+    return torch.cat([avail, 1.0 / torch.gather(c, 1, j[:, None])], 1)
+
+
+def sweep_coded(gen):
+    """B1 over ENCODE_SWEEP and B4 over MG_SWEEP in fp32 and bf16, through
+    the op and through the bounds-checked build (a REPRO_CHECK trap there
+    fails the CUDA context, and with it this run), held against the plain
+    versions; B1 with [r, k] host coefficients (one launch for all rows) on
+    aligned and unaligned (scalar path) queries, B4 with shared and
+    per-group host coefficients and host indices."""
+    n_enc = n_mg = 0
+    for k, r, B, F in ENCODE_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            for aligned in (True, False):
+                base = randn(gen, (k * B * F + 1,), dt)
+                q = (base[:-1] if aligned else base[1:]).view(k, B, F)
+                C = randn(gen, (r, k), torch.float32).cpu().numpy()
+                want = ref.parity_encode_ref(q, torch.tensor(C, device=DEV))
+                label = f"encode rows {k,r,B,F,dt,aligned}"
+                check_close(label, ops.parity_encode_op(q, C), want,
+                            tol(dt) * 4, tol(dt) * 4)
+                check_close(f"{label} checked build",
+                            k_enc.parity_encode(q, C, checked=True), want,
+                            tol(dt) * 4, tol(dt) * 4)
+                n_enc += 1
+    for G, k, B, V in MG_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            po = randn(gen, (G, B, V), dt)
+            outs = randn(gen, (G, k, B, V), dt)
+            idxs = np.arange(G) % k
+            for coeffs in (np.arange(1.0, k + 1.0, dtype=np.float32),
+                           np.random.default_rng(G).normal(size=(G, k))
+                           .astype(np.float32) + 2.0):
+                want = ref.multigroup_decode_ref(
+                    po, outs, decode_rows(idxs, coeffs, G, k))
+                label = f"multigroup {G,k,B,V,dt,coeffs.ndim}"
+                check_close(label,
+                            ops.multigroup_decode_op(po, outs, idxs, coeffs),
+                            want, tol(dt) * k, 2e-2)
+                check_close(f"{label} checked build",
+                            k_mg.multigroup_decode(po, outs, idxs, coeffs,
+                                                   checked=True),
+                            want, tol(dt) * k, 2e-2)
+                n_mg += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] parity_encode: {n_enc} sweep cases, multigroup_decode: "
+        f"{n_mg}, each also through the checked build (REPRO_CHECK on every "
+        f"index): no trap")
+    return n_enc + n_mg
+
+
+def one_launch(label, fn, kernel, per_call=1):
+    """Raise unless 20 calls of ``fn`` issue 20 * ``per_call`` launches of
+    ``kernel`` (of any of its instances) and no other device operation.
+    The calls are traced in two windows and each operation counted at its
+    larger count: a trace now and then loses one kernel event (a window of
+    20 B8 calls read 19 once), which the other window shows; an extra or
+    missing operation of the calls themselves shows in both.  A window
+    that holds no device event at all lost its trace (20 B8 calls read
+    nothing twice in a row once, in a run whose other traces lost events
+    too): up to four more windows are traced until two hold events; calls
+    that launch nothing read empty in all six and fail."""
+    windows = [device_ops(fn), device_ops(fn)]
+    while sum(map(bool, windows)) < 2 and len(windows) < 6:
+        windows.append(device_ops(fn))
+    full = [w for w in windows if w] or [{}]
+    if len(full) < len(windows):
+        log(f"[kernels] {label}: {len(windows) - len(full)} of "
+            f"{len(windows)} traced windows held no device event")
+    first, second = full[0], full[-1]
+    seen = {key: max(w.get(key, 0) for w in full)
+            for key in set().union(*full)}
     if first != second:
-        log(f"[kernels] {label}: the two traced windows differ ({first} / "
+        log(f"[kernels] {label}: the traced windows differ ({first} / "
             f"{second}); counted at the larger")
-    if len(seen) != 1 or sum(seen.values()) != 20 or \
-            kernel not in next(iter(seen)):
+    if sum(seen.values()) != 20 * per_call or \
+            any(kernel not in key for key in seen):
         raise AssertionError(f"{label}: 20 calls issued {seen} on the "
-                             f"device, not 20 launches of {kernel}")
+                             f"device, not {20 * per_call} launches of "
+                             f"{kernel}")
 
 
 def empty_launch_ms():
@@ -722,21 +800,52 @@ def measure_kernels():
     es = 4
     rows = {}
 
-    # B1: one coding group of two 1-sample MNIST queries
+    # B1: one coding group of two 1-sample MNIST queries, the coefficients
+    # host values (launch parameters); also timed as the op and as
+    # LinearScheme.encode (the MLP path's encode) call it, and at r = 2
+    # (both parity rows from one launch)
     k, B, F = K, 1, 784
     q = randn(gen, (k, B, F), f32)
-    c = torch.ones(k, device=DEV)
-    got, want = k_enc.parity_encode(q, c), ref.parity_encode_ref(q, c)
+    c = np.ones(k, np.float32)
+    c_d = torch.tensor(c, device=DEV)
+    sum_code = get_scheme("sum", k=k, device=DEV)
+    sum_r2 = get_scheme("sum", k=k, r=2, device=DEV)
+
+    def b1():
+        return k_enc.parity_encode(q, c)
+
+    def b1_op():
+        return ops.parity_encode_op(q, c)
+
+    def b1_scheme():
+        return sum_code.encode(q)
+
+    def b1_r2():
+        return sum_r2.encode(q)
+
+    want = ref.parity_encode_ref(q, c_d)
+    for label, fn in (("wrapper", b1), ("op", b1_op),
+                      ("LinearScheme.encode", b1_scheme)):
+        check_close(f"B1 {label}", fn().reshape(want.shape), want, 2e-5,
+                    2e-5)
+        one_launch(f"B1 {label}", fn, "encode_kernel")
+    check_close("B1 r=2", b1_r2(), ref.parity_encode_ref(
+        q, torch.tensor(sum_r2.host_coeffs, device=DEV)), 2e-5, 2e-5)
+    one_launch("B1 LinearScheme.encode r=2", b1_r2, "encode_kernel")
+    log("[kernels] parity_encode: 20 calls of the wrapper, of the op and of "
+        "LinearScheme.encode (r=1, and r=2 for both rows) each issue 20 "
+        "launches of encode_kernel and no other device operation")
     rows["parity_encode"] = dict(
         shape=[k, B, F], replaces="src/repro/kernels/parity_encode.py:28",
-        max_abs_err=check_close("B1", got, want, 2e-5, 2e-5),
-        ms=time_ms(lambda: k_enc.parity_encode(q, c)),
-        device_ms=device_ms(lambda: k_enc.parity_encode(q, c),
-                            "encode_kernel"),
-        plain_ms=time_ms(lambda: ref.parity_encode_ref(q, c)),
-        library_ms=time_ms(lambda: torch.einsum("k,kbf->bf", c, q)),
+        max_abs_err=check_close("B1", b1(), want, 2e-5, 2e-5),
+        ms=time_ms(b1), op_ms=time_ms(b1_op), scheme_ms=time_ms(b1_scheme),
+        device_ms=device_ms(b1, "encode_kernel"),
+        r2_device_ms=device_ms(b1_r2, "encode_kernel"),
+        r2_scheme_ms=time_ms(b1_r2),
+        plain_ms=time_ms(lambda: ref.parity_encode_ref(q, c_d)),
+        library_ms=time_ms(lambda: torch.einsum("k,kbf->bf", c_d, q)),
         library_device_ms=library_device_ms(
-            lambda: torch.einsum("k,kbf->bf", c, q)),
+            lambda: torch.einsum("k,kbf->bf", c_d, q)),
         bound=bound((k + 1) * B * F * es + k * 4, 2 * k * B * F, f32))
 
     # B3: one group's decode, 10 logits per member, with the k + 1
@@ -751,7 +860,6 @@ def measure_kernels():
     avail_d = torch.tensor(avail, device=DEV)
     stack = torch.cat([par[None], outs])
     w = torch.cat([torch.tensor([inv_c], device=DEV), -avail_d * inv_c])
-    sum_code = get_scheme("sum", k=k, device=DEV)
 
     def b3():
         return k_dec.parity_decode(par, outs, avail, inv_c)
@@ -785,31 +893,79 @@ def measure_kernels():
         bound=bound((k + 2) * B * V * es + (k + 1) * 4,
                     (2 * k + 1) * B * V, f32))
 
-    # B4: the A_d path's decode of 1000 groups at once
+    # B4: the A_d path's decode of 1000 groups at once, the missing indices
+    # and coefficients host values (the rows go as launch parameters); also
+    # timed as the op and as LinearScheme.decode_one_many (the A_d path's
+    # and the batched drains' decode) call it, at a serving drain's G = 2
+    # and past one launch's capacity (the 2 KB shared-coefficient block)
     G, k, B, V = 1000, K, 1, 10
     po = randn(gen, (G, B, V), f32)
     outs = randn(gen, (G, k, B, V), f32)
-    idxs = torch.arange(G, device=DEV) % k
-    cg = torch.ones((G, k), device=DEV)
-    avail = cg * (torch.arange(k, device=DEV)[None] != idxs[:, None])
-    inv = 1.0 / torch.gather(cg, 1, idxs[:, None])
-    cmat = torch.cat([avail, inv], 1)
+    idxs = np.arange(G) % k
+    c = np.ones(k, np.float32)
+    cmat = decode_rows(idxs, c, G, k)
     stack = torch.cat([po[:, None], outs], 1)
-    wg = torch.cat([inv, -avail * inv], 1)
-    got = k_mg.multigroup_decode(po, outs, cmat)
+    wg = torch.cat([cmat[:, k:], -cmat[:, :k] * cmat[:, k:]], 1)
+
+    def b4():
+        return k_mg.multigroup_decode(po, outs, idxs, c)
+
+    def b4_op():
+        return ops.multigroup_decode_op(po, outs, idxs, c)
+
+    def b4_scheme():
+        return sum_code.decode_one_many(po, outs, idxs)
+
     want = ref.multigroup_decode_ref(po, outs, cmat)
+    for label, fn in (("wrapper", b4), ("op", b4_op),
+                      ("decode_one_many", b4_scheme)):
+        check_close(f"B4 {label}", fn(), want, 2e-5 * k, 2e-2)
+        one_launch(f"B4 {label}", fn, "mg_decode_kernel")
+    G2 = 6000
+    po2, outs2 = randn(gen, (G2, B, V), f32), randn(gen, (G2, k, B, V), f32)
+    idxs2 = np.arange(G2) % k
+    chunks = len(k_mg.chunks(G2, k, False))
+
+    def b4_past():
+        return sum_code.decode_one_many(po2, outs2, idxs2)
+    check_close("B4 past capacity", b4_past(), ref.multigroup_decode_ref(
+        po2, outs2, decode_rows(idxs2, c, G2, k)), 2e-5 * k, 2e-2)
+    one_launch("B4 decode_one_many past capacity", b4_past,
+               "mg_decode_kernel", per_call=chunks)
+    # per-group coefficients (the 32 KB parameter block): G = 1000 rows of
+    # k + 1 in one launch
+    cg = np.random.default_rng(1).normal(size=(G, k)).astype(np.float32) + 3
+
+    def b4_rows():
+        return ops.multigroup_decode_op(po, outs, idxs, cg)
+    check_close("B4 per-group rows", b4_rows(), ref.multigroup_decode_ref(
+        po, outs, decode_rows(idxs, cg, G, k)), 2e-5 * k, 2e-2)
+    one_launch("B4 op per-group rows", b4_rows, "mg_decode_kernel")
+    log(f"[kernels] multigroup_decode: 20 calls of the wrapper, of the op and "
+        f"of LinearScheme.decode_one_many each issue 20 launches of "
+        f"mg_decode_kernel and no other device operation; at G={G2} 20 "
+        f"calls issue {20 * chunks} ({chunks} chunks of at most "
+        f"{k_mg.MAX_GROUPS} groups each) and nothing else; with per-group "
+        f"coefficients 20 calls at G={G} issue 20 (up to "
+        f"{k_mg.MAX_ROWS // (k + 1)} groups a launch)")
     rows["multigroup_decode"] = dict(
         shape=[G, k, B, V],
         replaces="src/repro/kernels/multigroup_decode.py:42",
-        max_abs_err=check_close("B4", got, want, 2e-5 * k, 2e-2),
-        ms=time_ms(lambda: k_mg.multigroup_decode(po, outs, cmat)),
-        device_ms=device_ms(lambda: k_mg.multigroup_decode(po, outs, cmat),
-                            "mg_decode_kernel"),
+        max_abs_err=check_close("B4", b4(), want, 2e-5 * k, 2e-2),
+        ms=time_ms(b4), op_ms=time_ms(b4_op), scheme_ms=time_ms(b4_scheme),
+        device_ms=device_ms(b4, "mg_decode_kernel"),
+        g2_device_ms=device_ms(
+            lambda: k_mg.multigroup_decode(po[:2], outs[:2], idxs[:2], c),
+            "mg_decode_kernel"),
+        past_capacity=dict(groups=G2, launches_per_call=chunks,
+                           device_ms=device_ms(b4_past, "mg_decode_kernel")),
+        rows_device_ms=device_ms(b4_rows, "mg_decode_kernel"),
+        rows_op_ms=time_ms(b4_rows),
         plain_ms=time_ms(lambda: ref.multigroup_decode_ref(po, outs, cmat)),
         library_ms=time_ms(lambda: torch.einsum("gk,gkbv->gbv", wg, stack)),
         library_device_ms=library_device_ms(
             lambda: torch.einsum("gk,gkbv->gbv", wg, stack)),
-        bound=bound(G * (k + 2) * B * V * es + G * (k + 1) * 4,
+        bound=bound(G * (k + 2) * B * V * es + G + 2 * k * 4,
                     G * (2 * k + 1) * B * V, f32))
 
     # Back-to-back calls find inputs below 50 MB in L2; cold_device_ms
@@ -923,10 +1079,26 @@ def measure_kernels():
                 + (f"library_device_ms={one['library_device_ms']:.5f} "
                    if "library_device_ms" in one else "")
                 + f"bound_ms={one['bound'][0]:.6f} ({one['bound'][1]})")
-    b3 = rows["parity_decode"]
+    b1, b3, b4 = (rows[name] for name in ("parity_encode", "parity_decode",
+                                         "multigroup_decode"))
+    log(f"[kernels] parity_encode with host coefficients: wrapper "
+        f"ms={b1['ms']:.5f}, parity_encode_op ms={b1['op_ms']:.5f}, "
+        f"LinearScheme.encode ms={b1['scheme_ms']:.5f}; at r=2 "
+        f"LinearScheme.encode ms={b1['r2_scheme_ms']:.5f} device_ms="
+        f"{fmt_ms(b1['r2_device_ms'])}")
     log(f"[kernels] parity_decode with host coefficients: wrapper "
         f"ms={b3['ms']:.5f}, parity_decode_op ms={b3['op_ms']:.5f}, "
         f"LinearScheme.decode_one ms={b3['decode_one_ms']:.5f}")
+    past = b4["past_capacity"]
+    log(f"[kernels] multigroup_decode with host indices and coefficients: "
+        f"wrapper ms={b4['ms']:.5f}, multigroup_decode_op "
+        f"ms={b4['op_ms']:.5f}, LinearScheme.decode_one_many "
+        f"ms={b4['scheme_ms']:.5f}; G=2 device_ms="
+        f"{fmt_ms(b4['g2_device_ms'])}; G={past['groups']} "
+        f"({past['launches_per_call']} launches) device_ms="
+        f"{fmt_ms(past['device_ms'])}; per-group rows (one launch) op "
+        f"ms={b4['rows_op_ms']:.5f} device_ms="
+        f"{fmt_ms(b4['rows_device_ms'])}")
     for name in ("flash_attention", "decode_attention"):
         for label, one in (("", rows[name]), *(
                 (f" {arch}", rows[name][key]) for key, arch in HEAD_ROWS)):
@@ -2916,7 +3088,9 @@ def kernel_entry(name, row, launches, by_path):
             **{key: head_entry(row[key]) for key, _ in HEAD_ROWS
                if key in row},
             **{key: row[key] for key in (
-                "op_ms", "decode_one_ms", "library_device_ms",
+                "op_ms", "scheme_ms", "decode_one_ms", "r2_scheme_ms",
+                "r2_device_ms", "g2_device_ms", "past_capacity",
+                "library_device_ms",
                 "cold_device_ms", "empty_launch_device_ms",
                 "device_ms_by_cluster",
                 "one_slot_device_ms") if key in row}}

@@ -61,13 +61,14 @@ def init_encoder_params(k, r, hidden, seed=0, alpha=0.0, device="cuda"):
 
 
 def _encode_flat(enc, coeffs, q, use_kernels=False):
-    """q [k, B, F] -> [r, B, F]: linear base code + alpha * MLP residual."""
-    r = coeffs.shape[0]
+    """q [k, B, F] -> [r, B, F]: linear base code + alpha * MLP residual;
+    coeffs [r, k] are host values under ``use_kernels`` (launch
+    parameters), a tensor otherwise."""
     h = torch.relu(torch.einsum("kh,kbf->hbf", enc["w1"], q)
                    + enc["b1"][:, None, None])
     if use_kernels:
         from repro_torch.kernels import ops
-        lin = _kernel_encode(q, coeffs, r)
+        lin = _kernel_encode(q, coeffs)
         proj = ops.learned_project_op(h, enc["w2"])
     else:
         lin = torch.tensordot(coeffs.to(q.dtype), q, dims=1)
@@ -120,8 +121,10 @@ class LearnedScheme(LinearScheme):
         """Frozen-encoder inference path ([k, ...] -> [r, ...])."""
         queries = self._t(queries)
         assert queries.shape[0] == self.k, queries.shape
-        return learned_encode(self.enc_params, self.coeffs, queries,
-                              use_kernels=self.backend == "kernels")
+        kernels = self.backend == "kernels"
+        return learned_encode(self.enc_params,
+                              self.host_coeffs if kernels else self.coeffs,
+                              queries, use_kernels=kernels)
 
     __call__ = encode
 

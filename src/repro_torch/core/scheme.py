@@ -214,26 +214,25 @@ def encode_cost(scheme):
     return 1.0
 
 
-def _kernel_encode(queries, coeffs, r):
-    """Route encode through the encode kernel, one launch per parity row."""
+def _kernel_encode(queries, coeffs):
+    """Route encode through the encode kernel: all r parity rows from one
+    launch; coeffs [r, k] are host values (launch parameters)."""
     from repro_torch.kernels import ops
     q = queries
     batched = q.ndim > 1
     if not batched:                       # [k] -> [k, 1]
         q = q[:, None]
     if q.ndim == 2:                       # [k, F] -> [k, 1, F]
-        q = q[:, None, :]
-        out = torch.stack([ops.parity_encode_op(q, coeffs[j])[0]
-                           for j in range(r)])
+        out = ops.parity_encode_op(q[:, None, :], coeffs)[:, 0]
     else:
-        out = torch.stack([ops.parity_encode_op(q, coeffs[j])
-                           for j in range(r)])
+        out = ops.parity_encode_op(q, coeffs)
     return out if batched else out[:, 0]
 
 
 def _kernel_decode_many(parity_outs, outputs, missing_idxs, coeffs):
     """Route the batched r=1 subtraction decode through the multigroup
-    kernel: all G stacked groups reconstructed in one launch."""
+    kernel: all G stacked groups reconstructed in one launch; missing_idxs
+    and coeffs [k] are host values (launch parameters)."""
     from repro_torch.kernels import ops
     outs, po = outputs, parity_outs
     G, k = outs.shape[:2]
@@ -305,7 +304,7 @@ class LinearScheme:
         queries = self._t(queries)
         assert queries.shape[0] == self.k, queries.shape
         if self.backend == "kernels":
-            return _kernel_encode(queries, self.coeffs, self.r)
+            return _kernel_encode(queries, self.host_coeffs)
         c = self.coeffs.to(queries.dtype)
         return torch.tensordot(c, queries, dims=1)
 
@@ -347,12 +346,14 @@ class LinearScheme:
     def decode_one_many(self, parity_outs, outputs, missing_idxs):
         """Batched ``decode_one`` over G stacked groups — ONE launch
         (``kernels/multigroup_decode.py``) instead of G per-group calls.
-        parity_outs [G, ...]; outputs [G, k, ...]; missing_idxs [G] ints."""
+        parity_outs [G, ...]; outputs [G, k, ...]; missing_idxs [G] host
+        ints (numpy, a list or a CPU tensor)."""
         outs, po = self._t(outputs), self._t(parity_outs)
+        if self.backend == "kernels":           # indices stay on the host
+            return _kernel_decode_many(po, outs, missing_idxs,
+                                       self.host_coeffs[0])
         idx = torch.as_tensor(np.asarray(missing_idxs), dtype=torch.long,
                               device=self._dev)
-        if self.backend == "kernels":
-            return _kernel_decode_many(po, outs, idx, self.coeffs[0])
         c = self.coeffs[0]                                      # [k]
         avail = c[None, :] * (torch.arange(self.k, device=self._dev)[None, :]
                               != idx[:, None])

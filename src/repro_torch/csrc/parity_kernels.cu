@@ -5,8 +5,10 @@
 // stream without synchronising, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 // Element types: dtype code 0 = float32, 1 = bfloat16.  All arithmetic and
-// every accumulation runs in fp32; coefficients arrive as fp32 device arrays,
-// except parity_decode's, which arrive by value as launch parameters.
+// every accumulation runs in fp32.  The coefficients of the encode and the
+// two decodes arrive by value as launch parameters, copied from host memory
+// by the C entry; those of the fused and projection kernels as fp32 device
+// arrays.
 //
 // Kernels in this file:
 //   encode_kernel         replaces repro/kernels/parity_encode.py:
@@ -25,7 +27,8 @@
 //
 // Built with -DREPRO_CHECKED (kernels/_build.py: library(checked=True)),
 // REPRO_CHECK(cond) prints the failed condition and traps; otherwise it is
-// empty.  It guards the indices of fused_cluster_kernel.
+// empty.  It guards the indices of fused_cluster_kernel, encode_kernel and
+// mg_decode_kernel.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -81,60 +84,349 @@ inline int blocks_for(int64_t n) {
   return static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-// ---------------------------------------------------------------- encode ---
-// P[e] = sum_i c[i] * X[i, e] over the flattened [B*F] element index e.
-//
-// Bound on the H100: device-memory bytes (k reads and one write per element,
-// one multiply-add per read).  At the serving shapes (k=2, B<=4, F=784) the
-// whole call moves a few tens of KB, so the launch latency is the bound.
-// Design: one thread per output element in a grid-stride loop; neighbouring
-// threads read neighbouring addresses of each of the k rows, so every warp
-// load is coalesced; the k-loop runs in registers and the ragged tail is the
-// loop bound, so no element outside [0, n) is touched.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-encode_kernel(const T* __restrict__ q, const float* __restrict__ c,
-              T* __restrict__ out, int k, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       e < n; e += stride) {
-    float acc = to_f32(q[e]) * c[0];
-    for (int i = 1; i < k; ++i) acc += to_f32(q[i * n + e]) * c[i];
-    out[e] = from_f32<T>(acc);
+// 16 bytes of T: N values, unpacked to fp32 and packed back
+template <typename T> struct Lanes;
+template <> struct Lanes<float> {
+  static constexpr int N = 4;
+  using Bits = unsigned int;
+  static __device__ __forceinline__ void unpack(const uint4& r,
+                                                float (&x)[4]) {
+    x[0] = __uint_as_float(r.x);
+    x[1] = __uint_as_float(r.y);
+    x[2] = __uint_as_float(r.z);
+    x[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&x)[4]) {
+    return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                      __float_as_uint(x[2]), __float_as_uint(x[3]));
+  }
+};
+template <> struct Lanes<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Bits = unsigned short;
+  static __device__ __forceinline__ void unpack(const uint4& r,
+                                                float (&x)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&x)[8]) {
+    uint4 r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    return r;
+  }
+};
+
+// Elements [e0, e0 + N) of a row as 16 bytes: one vector load, or (VEC =
+// false) one load per element below n, zero past it
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_lanes(const T* row, int64_t e0,
+                                            int64_t n) {
+  using L = Lanes<T>;
+  if constexpr (VEC) {
+    return __ldcs(reinterpret_cast<const uint4*>(row + e0));
+  } else {
+    typename L::Bits b[L::N];
+    const typename L::Bits* src =
+        reinterpret_cast<const typename L::Bits*>(row);
+#pragma unroll
+    for (int k = 0; k < L::N; ++k)
+      b[k] = e0 + k < n ? __ldcs(src + e0 + k) : 0;
+    uint4 r;
+    memcpy(&r, b, sizeof r);
+    return r;
   }
 }
 
-// ---------------------------------------------------------------- decode ---
-// out[g, e] = (P[g, e] - sum_i cmat[g, i] * O[g, i, e]) * cmat[g, k]
-// cmat[g] holds the code coefficients with a 0 at the missing index and
-// 1/c_missing appended, so the "which member is missing" choice is data and
-// one kernel serves every missing pattern (the single-group decode, whose
-// coefficients live on the host, is parity_decode_kernel below).
+// ---------------------------------------------------------------- encode ---
+// P[j, e] = sum_i C[j, i] * X[i, e] over the flattened [B*F] element index
+// e, for each of the r parity rows j: queries X [k, n], coefficients C
+// [r, k] fp32, out [r, n] in X's dtype.  The reference encodes one row per
+// call; this kernel writes all r rows in one launch.
 //
-// Bound on the H100: device-memory bytes (k+1 reads and one write per
-// element).  At the serving shapes (G<=4, k=2, B<=4, V=10) and on the A_d path
-// (G=1000, V=10) the call moves well under 1 MB, so launch latency bounds it.
-// Design: one thread per output element over the flattened [G * B*V] index,
-// grid-stride; the group's k+1 coefficients are read through the read-only
-// cache (every thread of a group reads the same few words).
-template <typename T>
+// Bound on the H100: the launch.  The work is device-memory bytes (k reads
+// and r writes per element, one multiply-add per member and row), but at the
+// serving shapes (k=2, B<=4, F=784) a call moves a few tens of KB, a few ns
+// at 3.35 TB/s, against ~0.9 us for an empty launch.  What a call adds to
+// the launch is the memory round trips that follow it, so the design keeps
+// them to one:
+// - The r * k coefficients travel by value in the launch parameters
+//   (EncodeCoeffs, as DecodeCoeffs does for the one-group decode below):
+//   no device array, no op to build one and no copy to the card.  Every
+//   lane reads the same word, which the constant cache broadcasts.
+// - k is a template parameter for k = 2, 3, 4, so a thread issues the
+//   loads of all k members before its first multiply-add: one round trip,
+//   not k dependent ones.  The generic instance (K = 0, any k with r * k <=
+//   kMaxEncodeCoeffs) loads each member where it adds it, once per row.
+// - Each thread owns 16 bytes of every member row (4 fp32 or 8 bf16
+//   values), loaded and stored as one vector where n is a multiple of the
+//   width and both pointers are 16-byte aligned (then n_vec = n / N, else
+//   0), and writes those elements of all r rows.  The scalar loop after it
+//   takes what no vector covers, bounded by n.
+// - The arithmetic is the reference's: acc = x_0 c_0, then acc += x_i c_i,
+//   in fp32 registers.
+constexpr int kMaxEncodeCoeffs = 256;     // r * k
+struct EncodeCoeffs {
+  float c[kMaxEncodeCoeffs];
+};
+
+template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-mg_decode_kernel(const T* __restrict__ p, const T* __restrict__ o,
-                 const float* __restrict__ cmat, T* __restrict__ out, int k,
-                 int64_t n, int64_t total) {
+encode_kernel(const T* __restrict__ q, T* __restrict__ out,
+              const __grid_constant__ EncodeCoeffs cf, int k, int r,
+              int64_t n, int64_t n_vec) {
+  using L = Lanes<T>;
+  constexpr int N = L::N;
+  const int kk = K ? K : k;
+  REPRO_CHECK(kk >= 1 && r >= 1 && r * kk <= kMaxEncodeCoeffs);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       e < total; e += stride) {
-    const int64_t g = e / n;
-    const int64_t x = e - g * n;
-    const float* cg = cmat + g * (k + 1);
-    const T* og = o + g * k * n + x;
-    float acc = to_f32(p[e]);
-    for (int i = 0; i < k; ++i) acc -= to_f32(og[i * n]) * __ldg(cg + i);
-    out[e] = from_f32<T>(acc * __ldg(cg + k));
+  const int64_t t0 =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (int64_t v = t0; v < n_vec; v += stride) {
+    const int64_t e0 = v * N;
+    REPRO_CHECK(e0 + N <= n);
+    const uint4* src = reinterpret_cast<const uint4*>(q + e0);
+    const int64_t row = n / N;            // a member's stride in vectors
+    if constexpr (K > 0) {
+      uint4 raw[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i) raw[i] = src[i * row];
+      for (int j = 0; j < r; ++j) {
+        float acc[N], x[N];
+        L::unpack(raw[0], x);
+#pragma unroll
+        for (int l = 0; l < N; ++l) acc[l] = x[l] * cf.c[j * K];
+#pragma unroll
+        for (int i = 1; i < K; ++i) {
+          L::unpack(raw[i], x);
+#pragma unroll
+          for (int l = 0; l < N; ++l)
+            acc[l] = fmaf(x[l], cf.c[j * K + i], acc[l]);
+        }
+        *reinterpret_cast<uint4*>(out + j * n + e0) = L::pack(acc);
+      }
+    } else {
+      for (int j = 0; j < r; ++j) {
+        float acc[N], x[N];
+        L::unpack(src[0], x);
+#pragma unroll
+        for (int l = 0; l < N; ++l) acc[l] = x[l] * cf.c[j * kk];
+        for (int i = 1; i < kk; ++i) {
+          L::unpack(src[i * row], x);
+#pragma unroll
+          for (int l = 0; l < N; ++l)
+            acc[l] = fmaf(x[l], cf.c[j * kk + i], acc[l]);
+        }
+        *reinterpret_cast<uint4*>(out + j * n + e0) = L::pack(acc);
+      }
+    }
   }
+  for (int64_t e = n_vec * N + t0; e < n; e += stride) {
+    if constexpr (K > 0) {
+      float x[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i) x[i] = to_f32(q[i * n + e]);
+      for (int j = 0; j < r; ++j) {
+        float acc = x[0] * cf.c[j * K];
+#pragma unroll
+        for (int i = 1; i < K; ++i) acc = fmaf(x[i], cf.c[j * K + i], acc);
+        out[j * n + e] = from_f32<T>(acc);
+      }
+    } else {
+      for (int j = 0; j < r; ++j) {
+        float acc = to_f32(q[e]) * cf.c[j * kk];
+        for (int i = 1; i < kk; ++i)
+          acc = fmaf(to_f32(q[i * n + e]), cf.c[j * kk + i], acc);
+        out[j * n + e] = from_f32<T>(acc);
+      }
+    }
+  }
+}
+
+template <typename T>
+void launch_encode(const void* q, void* out, const EncodeCoeffs& cf, int k,
+                   int r, int64_t n, cudaStream_t s) {
+  constexpr int N = Lanes<T>::N;
+  const bool vec = n % N == 0 && (reinterpret_cast<uintptr_t>(q) |
+                                   reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const int64_t n_vec = vec ? n / N : 0;
+  const int blocks = blocks_for(n_vec + (n - n_vec * N));
+  const T* qt = static_cast<const T*>(q);
+  T* ot = static_cast<T*>(out);
+  if (k == 2)
+    encode_kernel<T, 2><<<blocks, kThreads, 0, s>>>(qt, ot, cf, k, r, n,
+                                                      n_vec);
+  else if (k == 3)
+    encode_kernel<T, 3><<<blocks, kThreads, 0, s>>>(qt, ot, cf, k, r, n,
+                                                      n_vec);
+  else if (k == 4)
+    encode_kernel<T, 4><<<blocks, kThreads, 0, s>>>(qt, ot, cf, k, r, n,
+                                                      n_vec);
+  else
+    encode_kernel<T, 0><<<blocks, kThreads, 0, s>>>(qt, ot, cf, k, r, n,
+                                                      n_vec);
+}
+
+// ---------------------------------------------------------------- decode ---
+// out[g, e] = (P[g, e] - sum_i R[g, i] * O[g, i, e]) * R[g, k] for the G
+// groups of one launch: parity outputs P [G, n], member outputs O [G, k, n],
+// out [G, n].  Group g's row R[g] holds its code coefficients with 0 at its
+// missing index j and 1 / c_j appended, so "which member is missing" is
+// data and one kernel serves every pattern.
+//
+// Bound on the H100: the launch.  The work is device-memory bytes (k + 1
+// reads and one write per element): at the serving shapes (G <= 4, k = 2,
+// B*V = 10) and on the A_d path (G = 1000) well under 1 MB, under 0.1 us at
+// 3.35 TB/s, against ~0.9 us for an empty launch.  Design:
+// - The coefficients travel by value in the launch parameters, computed
+//   on the host, where the missing indices stay: a call is one launch, with
+//   no copy to the card and no op to build anything.  Two parameter blocks,
+//   one kernel instance each:
+//   - MgShared (2 KB), coefficients shared by all groups (every scheme's
+//     decode): c_0..c_{k-1} and 1/c_0..1/c_{k-1}, and sel[g], group g's
+//     missing index j, one byte, for up to kMgGroups groups.  A warp loads
+//     its table words, which do not depend on j, while it loads j, then
+//     selects: R[g, i] = (i == j ? 0 : c_i), R[g, k] = 1/c_j.
+//   - MgRows (32,512 bytes; CUDA 12.1 and later let an sm_70+ kernel take
+//     up to 32,764 bytes of parameters), per-group coefficients: the
+//     launch's own rows, group g's at g (k + 1), kMgRowFloats / (k + 1)
+//     groups a launch (2,709 at k = 2).
+//   A call with more groups than one launch takes is several launches
+//   (kernels/multigroup_decode.py:chunks).
+// - k is a template parameter for k = 2, 3, 4 (K = 0: any k), so a warp
+//   issues all its loads (j, the coefficients, P and the k member rows)
+//   before its first multiply-add, as encode_kernel does.  Earlier designs
+//   with runtime-k loops took 1.62-1.84 us at the A_d shape, at or above
+//   the device-memory coefficient array they replace (PERF.md, section 6).
+// - A warp per group.  Lanes of one warp that read different constant
+//   words are served one word after the other; here all 32 read the same
+//   word, one broadcast, and walk the group's n elements 32 at a time
+//   (gridDim.x splits a long row over blocks).  The index is (group,
+//   element), with no division.
+// - Every member is read, the missing one too: a NaN or Inf in its
+//   placeholder output reaches the result through its 0 coefficient, as in
+//   the reference.
+constexpr int kMgWarps = 8;             // groups per block
+constexpr int kMgTableFloats = 256;     // 2k shared words
+constexpr int kMgGroups = 1024;         // groups per launch, shared
+constexpr int kMgRowFloats = 8128;      // per-group rows of k + 1
+struct MgShared {
+  static constexpr bool kRows = false;
+  float table[kMgTableFloats];
+  uint8_t sel[kMgGroups];
+};
+struct MgRows {
+  static constexpr bool kRows = true;
+  float rows[kMgRowFloats];
+};
+
+// Group g's coefficient R[g, i] for i < k, and R[g, k] = 1 / c_j
+__device__ __forceinline__ float mg_coeff(const MgShared& cf, int g, int k,
+                                          int i) {
+  return i == cf.sel[g] ? 0.f : cf.table[i];
+}
+__device__ __forceinline__ float mg_coeff(const MgRows& cf, int g, int k,
+                                          int i) {
+  return cf.rows[g * (k + 1) + i];
+}
+__device__ __forceinline__ float mg_inv(const MgShared& cf, int g, int k) {
+  // every 1/c_i is loaded beside j and one kept: no load waits on j
+  const int j = cf.sel[g];
+  float inv = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < k; ++i) inv = i == j ? cf.table[k + i] : inv;
+  return inv;
+}
+__device__ __forceinline__ float mg_inv(const MgRows& cf, int g, int k) {
+  return cf.rows[g * (k + 1) + k];
+}
+
+template <typename T, int K, typename Cf>
+__global__ void __launch_bounds__(kMgWarps * 32)
+mg_decode_kernel(const T* __restrict__ p, const T* __restrict__ o,
+                 T* __restrict__ out, const __grid_constant__ Cf cf, int G,
+                 int k, int64_t n) {
+  const int g = blockIdx.y * (blockDim.x / 32) + threadIdx.x / 32;
+  if (g >= G) return;
+  const int kk = K ? K : k;
+  if constexpr (Cf::kRows)
+    REPRO_CHECK(kk >= 1 && (g + 1) * (kk + 1) <= kMgRowFloats);
+  else
+    REPRO_CHECK(kk >= 1 && 2 * kk <= kMgTableFloats && g < kMgGroups &&
+                cf.sel[g] < kk);
+  const T* pg = p + g * n;
+  const T* og = o + static_cast<int64_t>(g) * kk * n;
+  T* outg = out + g * n;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * 32;
+  const int64_t x0 = static_cast<int64_t>(blockIdx.x) * 32 + threadIdx.x % 32;
+  const float inv = mg_inv(cf, g, kk);
+  if constexpr (K > 0) {
+    float c[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) c[i] = mg_coeff(cf, g, K, i);
+    for (int64_t x = x0; x < n; x += stride) {
+      float v[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i) v[i] = to_f32(og[i * n + x]);
+      float acc = to_f32(pg[x]);
+#pragma unroll
+      for (int i = 0; i < K; ++i) acc -= v[i] * c[i];
+      outg[x] = from_f32<T>(acc * inv);
+    }
+  } else {
+    for (int64_t x = x0; x < n; x += stride) {
+      float acc = to_f32(pg[x]);
+#pragma unroll 4
+      for (int i = 0; i < k; ++i)
+        acc -= to_f32(og[i * n + x]) * mg_coeff(cf, g, k, i);
+      outg[x] = from_f32<T>(acc * inv);
+    }
+  }
+}
+
+template <typename T, typename Cf>
+void launch_mg_decode(const void* p, const void* o, const Cf& cf, void* out,
+                      int G, int k, int64_t n, cudaStream_t s) {
+  const int warps = G < kMgWarps ? G : kMgWarps;
+  const int64_t gy = (G + warps - 1) / warps;
+  const int64_t cap = kMaxBlocks * kMgWarps / gy;
+  int64_t gx = (n + 31) / 32;
+  if (gx > cap) gx = cap > 0 ? cap : 1;
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  const T* pt = static_cast<const T*>(p);
+  const T* ot = static_cast<const T*>(o);
+  T* dst = static_cast<T*>(out);
+  if (k == 2)
+    mg_decode_kernel<T, 2, Cf><<<grid, warps * 32, 0, s>>>(pt, ot, dst, cf,
+                                                            G, k, n);
+  else if (k == 3)
+    mg_decode_kernel<T, 3, Cf><<<grid, warps * 32, 0, s>>>(pt, ot, dst, cf,
+                                                            G, k, n);
+  else if (k == 4)
+    mg_decode_kernel<T, 4, Cf><<<grid, warps * 32, 0, s>>>(pt, ot, dst, cf,
+                                                            G, k, n);
+  else
+    mg_decode_kernel<T, 0, Cf><<<grid, warps * 32, 0, s>>>(pt, ot, dst, cf,
+                                                            G, k, n);
+}
+
+template <typename Cf>
+int launch_mg_dtype(const void* p, const void* o, const Cf& cf, void* out,
+                    int G, int k, int64_t n, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    launch_mg_decode<float>(p, o, cf, out, G, k, n, s);
+  else if (dtype == 1)
+    launch_mg_decode<__nv_bfloat16>(p, o, cf, out, G, k, n, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------ one-group decode ---
@@ -148,8 +440,8 @@ mg_decode_kernel(const T* __restrict__ p, const T* __restrict__ o,
 // computed on the host (the scheme keeps them there) and copied into the
 // kernel's parameter space, so the call issues one launch and nothing else:
 // no device op builds them, and no copy moves them to the card.
-// Design: as mg_decode_kernel, one thread per element, grid-stride; every
-// thread reads the same few coefficient words from parameter space.
+// Design: one thread per element, grid-stride; every thread reads the same
+// few coefficient words from parameter space.
 constexpr int kMaxDecodeK = 32;
 struct DecodeCoeffs {
   float c[kMaxDecodeK + 1];
@@ -852,67 +1144,6 @@ constexpr int kProjRows = 8;     // output rows per row group
 constexpr int kProjLoads = 16;   // input rows loaded before the first FMA
 constexpr int kProjFewLoads = 4; // the same for H <= 4: fewer registers
 
-// 16 bytes of T: N values, unpacked to fp32 and packed back
-template <typename T> struct Lanes;
-template <> struct Lanes<float> {
-  static constexpr int N = 4;
-  using Bits = unsigned int;
-  static __device__ __forceinline__ void unpack(const uint4& r,
-                                                float (&x)[4]) {
-    x[0] = __uint_as_float(r.x);
-    x[1] = __uint_as_float(r.y);
-    x[2] = __uint_as_float(r.z);
-    x[3] = __uint_as_float(r.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&x)[4]) {
-    return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
-                      __float_as_uint(x[2]), __float_as_uint(x[3]));
-  }
-};
-template <> struct Lanes<__nv_bfloat16> {
-  static constexpr int N = 8;
-  using Bits = unsigned short;
-  static __device__ __forceinline__ void unpack(const uint4& r,
-                                                float (&x)[8]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&x)[8]) {
-    uint4 r;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    return r;
-  }
-};
-
-// Elements [e0, e0 + N) of a row as 16 bytes: one vector load, or (VEC =
-// false) one load per element below n, zero past it
-template <typename T, bool VEC>
-__device__ __forceinline__ uint4 load_lanes(const T* row, int64_t e0,
-                                            int64_t n) {
-  using L = Lanes<T>;
-  if constexpr (VEC) {
-    return __ldcs(reinterpret_cast<const uint4*>(row + e0));
-  } else {
-    typename L::Bits b[L::N];
-    const typename L::Bits* src =
-        reinterpret_cast<const typename L::Bits*>(row);
-#pragma unroll
-    for (int k = 0; k < L::N; ++k)
-      b[k] = e0 + k < n ? __ldcs(src + e0 + k) : 0;
-    uint4 r;
-    memcpy(&r, b, sizeof r);
-    return r;
-  }
-}
-
 template <typename T, int ROWS, int LOADS, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 project_kernel(const T* __restrict__ h, const float* __restrict__ w,
@@ -1042,21 +1273,23 @@ extern "C" {
 // cudaErrorInvalidValue for a dtype code the kernels do not take
 static int bad_dtype() { return static_cast<int>(cudaErrorInvalidValue); }
 
-int repro_parity_encode(const void* q, const void* c, void* out, int k,
-                        long long n, int dtype, void* stream) {
+// queries [k, n]; coeffs: r * k floats in HOST memory, row-major [r, k],
+// k >= 1, r >= 1 and r * k <= 256; out [r, n].  One launch of
+// encode_kernel.
+int repro_parity_encode(const void* q, const float* coeffs, void* out, int k,
+                        int r, long long n, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || r < 1 || static_cast<long long>(r) * k > kMaxEncodeCoeffs)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (dtype == 0) {
-    encode_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(c),
-        static_cast<float*>(out), k, n);
-  } else if (dtype == 1) {
-    encode_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(c),
-        static_cast<__nv_bfloat16*>(out), k, n);
-  } else {
+  EncodeCoeffs cf;
+  memcpy(cf.c, coeffs, sizeof(float) * r * k);
+  if (dtype == 0)
+    launch_encode<float>(q, out, cf, k, r, n, s);
+  else if (dtype == 1)
+    launch_encode<__nv_bfloat16>(q, out, cf, k, r, n, s);
+  else
     return bad_dtype();
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1085,28 +1318,35 @@ int repro_parity_decode(const void* p, const void* o, const float* coeffs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// parity_outs [G, n]; outputs [G, k, n]; cmat [G, k+1] fp32; out [G, n]
-int repro_multigroup_decode(const void* p, const void* o, const void* cmat,
-                            void* out, int G, int k, long long n, int dtype,
+// parity_outs [G, n]; outputs [G, k, n]; out [G, n]; table and sel in HOST
+// memory.  Shared coefficients (per_group = 0): table c_0..c_{k-1} then
+// 1/c_0..1/c_{k-1} (2k <= 256), sel the G missing indices (each < k),
+// G <= 1024.  Per-group (per_group = 1): table the G rows of k + 1
+// (G (k + 1) <= 8128), sel unused.  One launch of mg_decode_kernel.
+int repro_multigroup_decode(const void* p, const void* o, const float* table,
+                            const uint8_t* sel, void* out, int G, int k,
+                            long long n, int per_group, int dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = static_cast<long long>(G) * n;
-  if (total <= 0) return static_cast<int>(cudaGetLastError());
-  if (dtype == 0) {
-    mg_decode_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const float*>(p), static_cast<const float*>(o),
-        static_cast<const float*>(cmat), static_cast<float*>(out), k, n,
-        total);
-  } else if (dtype == 1) {
-    mg_decode_kernel<__nv_bfloat16><<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(p),
-        static_cast<const __nv_bfloat16*>(o),
-        static_cast<const float*>(cmat), static_cast<__nv_bfloat16*>(out),
-        k, n, total);
-  } else {
-    return bad_dtype();
+  if (k < 1 || G < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (per_group) {
+    if (static_cast<long long>(G) * (k + 1) > kMgRowFloats)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (G == 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+    MgRows cf;
+    memcpy(cf.rows, table, sizeof(float) * G * (k + 1));
+    return launch_mg_dtype(p, o, cf, out, G, k, n, dtype, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (G > kMgGroups || 2LL * k > kMgTableFloats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (G == 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  MgShared cf;
+  memcpy(cf.table, table, sizeof(float) * 2 * k);
+  for (int g = 0; g < G; ++g) {
+    if (sel[g] >= k) return static_cast<int>(cudaErrorInvalidValue);
+    cf.sel[g] = sel[g];
+  }
+  return launch_mg_dtype(p, o, cf, out, G, k, n, dtype, s);
 }
 
 // queries [k, B, F] (dtype_x), 1 <= k <= 8; coeffs [r, k] fp32; weights

@@ -10,8 +10,9 @@ runtime's worker threads may all reach their first kernel together.
 ``library(checked=True)`` builds the same sources with ``-DREPRO_CHECKED
 -lineinfo`` into a second, separately hashed library: there ``REPRO_CHECK``
 guards in the kernels trap on an index outside its tensor or buffer.  It is
-for checks only (``chip_smoke.py`` runs B2's sweep through it); every
-wrapper launches from the unchecked library.
+for checks only (``chip_smoke.py`` runs the sweeps of B1, B2 and B4
+through it); every wrapper launches from the unchecked library unless its
+caller asks for the checked one.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine-independent code must not need ``nvcc`` or a card until a kernel is
@@ -43,9 +44,10 @@ CHECKED_FLAGS = ("-DREPRO_CHECKED", "-lineinfo")
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _SIGNATURES = {
-    "repro_parity_encode": [_P, _P, _P, _I, _LL, _I, _P],
+    "repro_parity_encode": [_P, _P, _P, _I, _I, _LL, _I, _P],
     "repro_parity_decode": [_P, _P, _P, _P, _I, _LL, _I, _P],
-    "repro_multigroup_decode": [_P, _P, _P, _P, _I, _I, _LL, _I, _P],
+    "repro_multigroup_decode": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I,
+                                _P],
     "repro_fused_encode_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _P],
     "repro_learned_project": [_P, _P, _P, _I, _I, _LL, _I, _P],
@@ -88,7 +90,9 @@ class LaunchCounter:
         return self._n
 
 
-def _nvcc():
+def nvcc():
+    """The path of the CUDA compiler (PATH, then $CUDA_HOME/bin); raises
+    where there is none."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -105,14 +109,14 @@ def _nvcc():
 def _compile(sources, out, flags):
     """One nvcc per source into an object, all started together, then one
     link; returns the concatenated compiler output."""
-    nvcc = _nvcc()
+    exe = nvcc()
     tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
     tmp.mkdir(parents=True, exist_ok=True)
     objs, procs = [], []
     for src in sources:
         obj = tmp / (src.stem + ".o")
         objs.append(obj)
-        cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
+        cmd = [exe, *flags, "-c", str(src), "-o", str(obj)]
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -126,7 +130,7 @@ def _compile(sources, out, flags):
         shutil.rmtree(tmp, ignore_errors=True)
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     lib_tmp = tmp / out.name
-    cmd = [nvcc, *LINK_FLAGS, *map(str, objs), "-o", str(lib_tmp)]
+    cmd = [exe, *LINK_FLAGS, *map(str, objs), "-o", str(lib_tmp)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -86,17 +86,21 @@ def _f32(x, device):
 
 
 def parity_encode_op(queries, coeffs):
-    """queries [k, B, ...] (any trailing feature shape); coeffs [k]."""
+    """queries [k, B, ...] (any trailing feature shape); coeffs [k] ->
+    [B, ...], or [r, k] -> [r, B, ...]: all r parity rows from one launch.
+    coeffs are host values (numpy, a list or a CPU tensor): the kernel takes
+    them as launch parameters, and a CUDA ``coeffs`` raises ``TypeError``."""
     _no_backward("parity_encode_op", queries, coeffs)
     _no_dtensor("parity_encode_op", queries, coeffs)
     k, B = queries.shape[:2]
     flat = queries.reshape(k, B, -1)
-    c = _f32(coeffs, flat.device)
-    if _on_card(flat):
-        out = _encode.parity_encode(flat.contiguous(), c.contiguous())
+    on_card = _on_card(flat)
+    c = _decode.host_floats(coeffs, "parity_encode_op")
+    if on_card:
+        out = _encode.parity_encode(flat.contiguous(), c)
     else:
-        out = ref.parity_encode_ref(flat, c)
-    return out.reshape((B,) + tuple(queries.shape[2:]))
+        out = ref.parity_encode_ref(flat, torch.from_numpy(c))
+    return out.reshape(c.shape[:-1] + (B,) + tuple(queries.shape[2:]))
 
 
 def parity_decode_op(parity_out, outputs, missing_idx, coeffs=None):
@@ -144,11 +148,14 @@ def multigroup_decode_op(parity_outs, outputs, missing_idxs, coeffs):
     parity_outs [G, B, V...] (axis 1 is batch when present: [G, V...] inputs
     are treated as batch 1); outputs [G, k, B, V...]; missing_idxs [G] ints;
     coeffs [k] (shared) or [G, k] (per-group).  Returns reconstructions
-    shaped like ``parity_outs``."""
+    shaped like ``parity_outs``.  The indices and coefficients are host
+    values: they reach the kernel as launch parameters
+    (``multigroup_decode.multigroup_decode``), and the plain version takes
+    the rows of the reference's formula (``multigroup_decode.coeff_rows``);
+    a CUDA index or coefficient tensor raises ``TypeError``."""
     _no_backward("multigroup_decode_op", parity_outs, outputs, coeffs)
     _no_dtensor("multigroup_decode_op", parity_outs, outputs, coeffs)
     G, k = outputs.shape[:2]
-    dev = outputs.device
     if parity_outs.ndim >= 3:
         B = parity_outs.shape[1]
         po = parity_outs.reshape(G, B, -1)
@@ -156,18 +163,12 @@ def multigroup_decode_op(parity_outs, outputs, missing_idxs, coeffs):
     else:
         po = parity_outs.reshape(G, 1, -1)
         outs = outputs.reshape(G, k, 1, -1)
-    idx = torch.as_tensor(missing_idxs, dtype=torch.long, device=dev)
-    c = _f32(coeffs, dev)
-    if c.ndim == 1:
-        c = c[None].expand(G, k)
-    avail = c * (torch.arange(k, device=dev)[None, :] != idx[:, None])
-    inv = 1.0 / torch.gather(c, 1, idx[:, None])                 # [G, 1]
-    cmat = torch.cat([avail, inv], dim=1)                        # [G, k+1]
     if _on_card(outs):
         out = _mg_decode.multigroup_decode(po.contiguous(), outs.contiguous(),
-                                           cmat.contiguous())
+                                           missing_idxs, coeffs)
     else:
-        out = ref.multigroup_decode_ref(po, outs, cmat)
+        rows = _mg_decode.coeff_rows(missing_idxs, coeffs, G, k)
+        out = ref.multigroup_decode_ref(po, outs, torch.from_numpy(rows))
     return out.reshape(parity_outs.shape)
 
 

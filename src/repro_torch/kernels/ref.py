@@ -11,8 +11,9 @@ from repro_torch.kernels.fused_encode_forward import fused_slices
 
 
 def parity_encode_ref(queries, coeffs):
-    """queries [k, B, F]; coeffs [k] -> parity [B, F] (fp32 accumulate)."""
-    acc = torch.einsum("k,kbf->bf", coeffs.float(), queries.float())
+    """queries [k, B, F]; coeffs [k] -> parity [B, F], or [r, k] -> the r
+    parity rows [r, B, F] (fp32 accumulate)."""
+    acc = torch.einsum("...k,kbf->...bf", coeffs.float(), queries.float())
     return acc.to(queries.dtype)
 
 

@@ -38,6 +38,17 @@ def _close(got, want, atol, rtol):
                                rtol=rtol)
 
 
+def _decode_rows(idxs, coeffs, G, k):
+    """The plain version's [G, k + 1] decode rows, built on the card with
+    PyTorch ops and apart from the wrapper's own host rows:
+    ``c * [i != j]`` and ``1 / c_j``."""
+    j = torch.as_tensor(np.asarray(idxs), device="cuda")
+    c = torch.as_tensor(np.asarray(coeffs, np.float32), device="cuda")
+    c = c.expand(G, k)
+    avail = c * (torch.arange(k, device="cuda")[None] != j[:, None])
+    return torch.cat([avail, 1.0 / torch.gather(c, 1, j[:, None])], 1)
+
+
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -45,11 +56,85 @@ DTYPES = [torch.float32, torch.bfloat16]
 @pytest.mark.parametrize("k,B,F", [(2, 1, 784), (4, 8, 1000), (6, 2, 257)])
 def test_parity_encode_kernel(cuda, k, B, F, dt):
     q = torch.randn((k, B, F), generator=cuda, device="cuda").to(dt)
-    c = torch.arange(1.0, k + 1.0, device="cuda")
+    c = np.arange(1.0, k + 1.0, dtype=np.float32)       # host coefficients
     before = ops.counters()["parity_encode"].value
     got = ops.parity_encode_op(q, c)
     assert ops.counters()["parity_encode"].value == before + 1
-    _close(got, ref.parity_encode_ref(q, c), _tol(dt), _tol(dt))
+    _close(got, ref.parity_encode_ref(q, torch.tensor(c, device="cuda")),
+           _tol(dt), _tol(dt))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("k,r,B,F", [(2, 2, 1, 784), (3, 3, 2, 257),
+                                     (5, 2, 4, 96), (16, 16, 1, 9),
+                                     (20, 3, 2, 257), (256, 1, 1, 40)])
+def test_parity_encode_kernel_rows(cuda, k, r, B, F, dt, aligned):
+    """B1 with [r, k] host coefficients: all r rows from one launch, at the
+    k = 2, 3 instances and the generic one (k = 5, 16, 20 and 256, r * k =
+    256 at the cap), on vector-aligned and unaligned inputs (the scalar
+    path)."""
+    base = torch.randn(k * B * F + 1, generator=cuda, device="cuda").to(dt)
+    q = (base[:-1] if aligned else base[1:]).view(k, B, F)
+    C = np.random.default_rng(k).normal(size=(r, k)).astype(np.float32)
+    cnt = ops.counters()["parity_encode"]
+    before = cnt.value
+    got = ops.parity_encode_op(q, C)
+    torch.cuda.synchronize()
+    assert cnt.value == before + 1 and tuple(got.shape) == (r, B, F)
+    _close(got, ref.parity_encode_ref(q, torch.tensor(C, device="cuda")),
+           _tol(dt) * 4, _tol(dt) * 4)
+
+
+def test_parity_encode_rejects_cuda_coeffs(cuda):
+    """Coefficients on the card would cost a sync per encode: a CUDA
+    coefficient tensor raises instead of being read back."""
+    q = torch.ones((2, 1, 10), device="cuda")
+    with pytest.raises(TypeError, match="host"):
+        ops.parity_encode_op(q, torch.ones(2, device="cuda"))
+    with pytest.raises(ValueError, match="r \\* k"):
+        ops.parity_encode_op(q, np.ones((129, 2), np.float32))
+
+
+def _device_ops(fn, iters=20):
+    """{device operation name: count} over ``iters`` calls of ``fn``,
+    traced in two windows and each operation counted at its larger count
+    (as ``chip_smoke.one_launch`` does): a trace now and then loses one
+    kernel event (120 launches once read 119), which the other window
+    shows; an extra or missing operation of the calls shows in both.  A
+    window with no device event at all lost its trace: up to four more are
+    traced until two hold events (calls that launch nothing read empty in
+    all six)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    windows = []
+    while len(windows) < 2 or (sum(map(bool, windows)) < 2
+                               and len(windows) < 6):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        windows.append({ev.key: ev.count for ev in prof.key_averages()
+                        if ev.device_type == DeviceType.CUDA})
+    return {key: max(w.get(key, 0) for w in windows)
+            for key in set().union(*windows)}
+
+
+def test_parity_encode_r2_is_one_device_operation(cuda):
+    """LinearScheme.encode at r = 2 on the card: 20 calls are 20 launches
+    of encode_kernel and no other device operation."""
+    from repro_torch.core.scheme import get_scheme
+    scheme = get_scheme("sum", k=2, r=2, device="cuda")
+    q = torch.randn((2, 1, 784), generator=cuda, device="cuda")
+    cnt = ops.counters()["parity_encode"]
+    before = cnt.value
+    seen = _device_ops(lambda: scheme.encode(q))
+    assert cnt.value == before + 41
+    assert len(seen) == 1 and sum(seen.values()) == 20, seen
+    assert "encode_kernel" in next(iter(seen))
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -101,13 +186,59 @@ def test_parity_decode_rejects_cuda_coeffs(cuda):
 def test_multigroup_decode_kernel(cuda, G, k, B, V, dt):
     po = torch.randn((G, B, V), generator=cuda, device="cuda").to(dt)
     outs = torch.randn((G, k, B, V), generator=cuda, device="cuda").to(dt)
-    idxs = torch.arange(G, device="cuda") % k
-    c = torch.arange(1.0, k + 1.0, device="cuda")
-    cg = c[None].expand(G, k)
-    avail = cg * (torch.arange(k, device="cuda")[None] != idxs[:, None])
-    cmat = torch.cat([avail, 1.0 / torch.gather(cg, 1, idxs[:, None])], 1)
+    idxs = np.arange(G) % k                              # host indices
+    c = np.arange(1.0, k + 1.0, dtype=np.float32)        # host coefficients
+    cmat = _decode_rows(idxs, c, G, k)
     _close(ops.multigroup_decode_op(po, outs, idxs, c),
            ref.multigroup_decode_ref(po, outs, cmat), _tol(dt) * k, 2e-2)
+
+
+def test_multigroup_decode_rejects_cuda_indices_and_coeffs(cuda):
+    """Indices or coefficients on the card would cost a sync per decode: a
+    CUDA tensor of either raises instead of being read back."""
+    po, outs = torch.ones((2, 1, 10), device="cuda"), \
+        torch.ones((2, 2, 1, 10), device="cuda")
+    with pytest.raises(TypeError, match="host"):
+        ops.multigroup_decode_op(po, outs, torch.tensor([0, 1], device="cuda"),
+                                 np.ones(2, np.float32))
+    with pytest.raises(TypeError, match="host"):
+        ops.multigroup_decode_op(po, outs, [0, 1],
+                                 torch.ones(2, device="cuda"))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("G,k", [(1025, 2), (6000, 2), (2001, 3),
+                                 (1000, 16)])
+def test_multigroup_decode_past_one_launch(cuda, G, k, dt):
+    """More groups than one launch takes: one launch of mg_decode_kernel
+    per chunk (the counter and the profiler agree) and no other device
+    operation, with per-group coefficients through the op (2709 groups a
+    launch at k = 2, 478 at k = 16, from the 32 KB parameter block) and
+    shared ones through decode_one_many (1024), held against the plain
+    version."""
+    from repro_torch.core.scheme import get_scheme
+    from repro_torch.kernels.multigroup_decode import chunks
+    rng = np.random.default_rng(G)
+    po = torch.randn((G, 1, 10), generator=cuda, device="cuda").to(dt)
+    outs = torch.randn((G, k, 1, 10), generator=cuda, device="cuda").to(dt)
+    idxs = rng.integers(0, k, G)
+    c = rng.normal(size=(G, k)).astype(np.float32) + 3.0
+    cnt = ops.counters()["multigroup_decode"]
+    before = cnt.value
+    got = ops.multigroup_decode_op(po, outs, idxs, c)
+    torch.cuda.synchronize()
+    assert cnt.value == before + len(chunks(G, k, True))
+    cmat = _decode_rows(idxs, c, G, k)
+    _close(got, ref.multigroup_decode_ref(po, outs, cmat), _tol(dt) * k,
+           2e-2)
+    seen = _device_ops(lambda: ops.multigroup_decode_op(po, outs, idxs, c))
+    assert len(seen) == 1, seen
+    assert sum(seen.values()) == 20 * len(chunks(G, k, True)), seen
+    scheme = get_scheme("sum", k=k, device="cuda")
+    seen = _device_ops(lambda: scheme.decode_one_many(po, outs, idxs))
+    n = len(chunks(G, k, False))
+    assert len(seen) == 1 and sum(seen.values()) == 20 * n, seen
+    assert "mg_decode_kernel" in next(iter(seen))
 
 
 FUSED_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),

@@ -72,6 +72,52 @@ def test_parity_encode_trailing_feature_shape():
     _close(got, jops.parity_encode_op(jq, jnp.asarray(c)), 2e-5)
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_parity_encode_all_rows_in_one_call(r, dt):
+    """[r, k] coefficients in one call equal the reference's encode row by
+    row (its op takes one [k] row per call)."""
+    k, B, F = 3, 2, 257
+    rng = np.random.default_rng(10 * r)
+    jq, tq = _both(rng.normal(size=(k, B, F, 1)).astype(np.float32), dt)
+    C = rng.normal(size=(r, k)).astype(np.float32)
+    got = ops.parity_encode_op(tq, C)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (r, B, F, 1)
+    for j in range(r):
+        _close(got[j], jops.parity_encode_op(jq, jnp.asarray(C[j])), _tol(dt))
+    _close(ref.parity_encode_ref(tq.reshape(k, B, F), torch.tensor(C)),
+           np.stack([jref.parity_encode_ref(jq.reshape(k, B, F),
+                                            jnp.asarray(C[j]))
+                     for j in range(r)]), _tol(dt))
+
+
+@pytest.mark.parametrize("coeffs", [np.ones(2, np.float32), [1.0, 2.0],
+                                    torch.tensor([1.0, 2.0])])
+def test_parity_encode_host_coefficient_forms(coeffs):
+    """numpy, a list and a CPU tensor are host coefficients; a tensor on
+    another device raises TypeError (on the card it would cost a sync)."""
+    q = torch.ones(2, 3, 5)
+    want = ref.parity_encode_ref(q, torch.tensor(np.asarray(coeffs,
+                                                            np.float32)))
+    _close(ops.parity_encode_op(q, coeffs), want.numpy(), 0.0)
+    with pytest.raises(TypeError, match="host values"):
+        ops.parity_encode_op(q, torch.ones(2, device="meta"))
+
+
+@pytest.mark.parametrize("k,r,fits", [(256, 1, True), (20, 12, True),
+                                      (257, 1, False), (129, 2, False)])
+def test_parity_encode_coefficient_cap(k, r, fits):
+    """The kernel takes any k with r * k <= 256 coefficients (its launch
+    parameters); past that the wrapper raises ValueError, before it looks
+    at the device (a CPU tensor then raises for not being on the card)."""
+    from repro_torch.kernels.parity_encode import parity_encode
+    q = torch.ones(k, 1, 3)
+    C = np.ones((r, k), np.float32)
+    with pytest.raises(ValueError, match="CUDA tensors" if fits else
+                       "r \\* k <= 256"):
+        parity_encode(q, C)
+
+
 @pytest.mark.parametrize("k,B,V,dt", [
     (2, 4, 100, "f32"), (4, 2, 1000, "f32"), (3, 8, 513, "bf16"),
     (2, 1, 10, "f32"),
@@ -316,6 +362,113 @@ def test_multigroup_decode_no_batch_axis_and_ref():
                                       jnp.asarray(cmat)), 2e-5)
 
 
+def _reference_rows(idxs, c, G, k):
+    """The reference op's [G, k+1] coefficient matrix
+    (``repro.kernels.ops.multigroup_decode_op``, written out in JAX)."""
+    idx = jnp.asarray(idxs)
+    c = jnp.asarray(c, jnp.float32)
+    if c.ndim == 1:
+        c = jnp.broadcast_to(c[None], (G, k))
+    avail = c * (jnp.arange(k)[None, :] != idx[:, None])
+    inv = 1.0 / jnp.take_along_axis(c, idx[:, None], axis=1)
+    return np.asarray(jnp.concatenate([avail, inv], axis=1))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_multigroup_coeff_rows_bit_equal_to_reference(shared):
+    """The host rows equal the reference's formula bit for bit, a negative
+    coefficient at the missing index included (JAX's product with a
+    boolean mask is a select: +0 there, not -0); so do the rows the kernel
+    selects from shared coefficients (c with 0 at j, and 1/c_j)."""
+    from repro_torch.kernels.multigroup_decode import coeff_rows, shared_table
+    G, k = 12, 4
+    rng = np.random.default_rng(5)
+    c = rng.uniform(0.3, 3.0, (k,) if shared else (G, k)).astype(np.float32)
+    c *= rng.choice([-1.0, 1.0], c.shape).astype(np.float32)
+    idxs = rng.integers(0, k, G)
+    got = coeff_rows(idxs, c, G, k)
+    want = _reference_rows(idxs, c, G, k)
+    assert got.dtype == np.float32 and got.shape == (G, k + 1)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert (np.broadcast_to(c, (G, k))[np.arange(G), idxs] < 0).any()
+    for form in (list(idxs), torch.tensor(idxs)):
+        np.testing.assert_array_equal(coeff_rows(form, c, G, k), got)
+    if shared:
+        words = shared_table(c)
+        sel = np.arange(k)[None, :] == idxs[:, None]
+        kernel = np.concatenate([np.where(sel, np.float32(0.0), words[:k]),
+                                 words[k + idxs][:, None]], axis=1)
+        np.testing.assert_array_equal(kernel.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+@pytest.mark.parametrize("shared", [True, False])
+def test_multigroup_decode_placeholder_propagates(bad, shared):
+    """A NaN or Inf in the missing member's placeholder output gives NaN in
+    the same places as the reference (c_j * 0 is not skipped)."""
+    G, k, B, V = 6, 3, 2, 5
+    rng = np.random.default_rng(3)
+    po = rng.normal(size=(G, B, V)).astype(np.float32)
+    outs = rng.normal(size=(G, k, B, V)).astype(np.float32)
+    idxs = np.arange(G) % k
+    outs[np.arange(G), idxs, 0, :2] = bad
+    c = np.arange(1.0, k + 1.0, dtype=np.float32) if shared else \
+        rng.normal(size=(G, k)).astype(np.float32) + 3.0
+    want = np.asarray(jops.multigroup_decode_op(
+        jnp.asarray(po), jnp.asarray(outs), idxs, jnp.asarray(c)))
+    got = ops.multigroup_decode_op(torch.tensor(po), torch.tensor(outs),
+                                   idxs, c).numpy()
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    keep = ~np.isnan(want)
+    _close(torch.tensor(got[keep]), want[keep], 2e-5 * k)
+
+
+@pytest.mark.parametrize("G,k,per_group,launches", [
+    (1, 2, False, 1), (1000, 2, False, 1), (1024, 2, False, 1),
+    (1025, 2, False, 2), (6000, 2, False, 6), (3000, 128, False, 3),
+    (1000, 2, True, 1), (2709, 2, True, 1), (2710, 2, True, 2),
+    (6000, 2, True, 3), (1000, 7, True, 1), (1000, 16, True, 3),
+    (40, 255, True, 2)])
+def test_multigroup_chunk_plan(G, k, per_group, launches):
+    """Groups past one launch's capacity go in further launches: 1024
+    groups a launch with shared coefficients (2k of 256 words, k <= 128),
+    as many groups as their rows of k + 1 fit in 8128 words with per-group
+    ones (2709 at k = 2, so the A_d path's 1000 is one launch up to k = 7);
+    the ranges cover [0, G) in order."""
+    from repro_torch.kernels.multigroup_decode import (MAX_GROUPS, MAX_ROWS,
+                                                       chunks)
+    plan = chunks(G, k, per_group)
+    assert len(plan) == launches
+    assert plan[0][0] == 0 and plan[-1][1] == G
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    if per_group:
+        assert all(0 < (g1 - g0) * (k + 1) <= MAX_ROWS for g0, g1 in plan)
+    else:
+        assert all(0 < g1 - g0 <= MAX_GROUPS for g0, g1 in plan)
+
+
+def test_multigroup_decode_rejects_device_indices_and_coeffs():
+    """Indices or coefficients on a device raise TypeError (on the card
+    reading them back would cost a sync per decode); too wide a row for one
+    launch, or a missing index outside [0, k), raises ValueError."""
+    from repro_torch.kernels.multigroup_decode import chunks
+    po, outs = torch.ones(4, 5), torch.ones(4, 2, 5)
+    with pytest.raises(TypeError, match="host values"):
+        ops.multigroup_decode_op(po, outs, torch.zeros(4, dtype=torch.long,
+                                                       device="meta"), [1, 1])
+    with pytest.raises(TypeError, match="host values"):
+        ops.multigroup_decode_op(po, outs, [0, 1, 0, 1],
+                                 torch.ones(2, device="meta"))
+    with pytest.raises(ValueError, match="coefficient words"):
+        chunks(1, 129, False)
+    with pytest.raises(ValueError, match="coefficient words"):
+        chunks(1, 8128, True)
+    with pytest.raises(ValueError, match="missing indices"):
+        ops.multigroup_decode_op(po, outs, [0, 1, 2, 1], [1, 1])
+
+
 @pytest.mark.parametrize("k,r", [(3, 2), (4, 3)])
 def test_multigroup_lstsq(k, r):
     """Batched masked least squares, varied masks and a straggling parity."""
@@ -382,7 +535,7 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         multigroup_decode.multigroup_decode(torch.ones(4, 3, 5),
                                             torch.ones(4, 2, 3, 5),
-                                            torch.ones(4, 3))
+                                            [0, 1, 0, 1], torch.ones(2))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_encode_forward.fused_encode_forward(q, torch.ones(1, 2),
                                                   torch.ones(1, 5, 7))

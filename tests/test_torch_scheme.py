@@ -105,6 +105,54 @@ def test_decode_one_many(backend, tail):
                np.asarray(want)[g], 2e-5 * k)
 
 
+def _spy(monkeypatch, name):
+    """Count the calls of ``kernels.ops.<name>`` and keep their arguments."""
+    from repro_torch.kernels import ops
+    calls, real = [], getattr(ops, name)
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+    monkeypatch.setattr(ops, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("tail", [(), (6,), (3, 6)])
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_kernels_encode_is_one_op_call(monkeypatch, r, tail):
+    """Under backend="kernels" an encode of all r parity rows is one
+    ``parity_encode_op`` call with the scheme's host coefficients, and
+    equals the reference scheme's encode."""
+    k = 3
+    ref, port = _pair("sum", k, r, "kernels")
+    calls = _spy(monkeypatch, "parity_encode_op")
+    q = np.random.default_rng(r).normal(size=(k,) + tail).astype(np.float32)
+    got = port.encode(q)
+    assert tuple(got.shape) == (r,) + tail
+    _close(got, ref.encode(jnp.asarray(q)), 2e-5 * k)
+    assert len(calls) == 1
+    np.testing.assert_array_equal(calls[0][1], port.host_coeffs)
+
+
+@pytest.mark.parametrize("form", [np.asarray, list, torch.tensor])
+def test_kernels_decode_one_many_keeps_indices_on_host(monkeypatch, form):
+    """Under backend="kernels" decode_one_many hands its missing indices to
+    one ``multigroup_decode_op`` call as it got them (host values), with
+    the scheme's host coefficients, and equals the reference's."""
+    k, G = 3, 5
+    ref, port = _pair("sum", k, 1, "kernels")
+    calls = _spy(monkeypatch, "multigroup_decode_op")
+    rng = np.random.default_rng(4)
+    po = rng.normal(size=(G, 2, 10)).astype(np.float32)
+    outs = rng.normal(size=(G, k, 2, 10)).astype(np.float32)
+    idxs = form([int(i) for i in rng.integers(0, k, G)])
+    want = ref.decode_one_many(jnp.asarray(po), jnp.asarray(outs),
+                               np.asarray(idxs))
+    _close(port.decode_one_many(po, outs, idxs), want, 2e-5 * k)
+    assert len(calls) == 1 and calls[0][2] is idxs
+    np.testing.assert_array_equal(calls[0][3], port.host_coeffs[0])
+
+
 def _masks(k, r):
     """Every missing mask with 1..r missing rows."""
     for n in range(1, r + 1):
