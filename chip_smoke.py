@@ -93,16 +93,27 @@ Phases, in order; any failure exits non-zero:
                (reduced qwen2-0.5b and smollm-135m, fp32: B7 and B8 on
                their SIMT routes); each one's result checked, its wall time
                and launches by kernel printed.
+14. sharded  — phase 8's qwen2-0.5b served by ``deploy_lm`` on a (1, 1)
+               mesh over one NCCL rank with its parameters DTensors, so
+               the SPMD session runs as on a larger mesh (an instance mesh
+               per executor, the serving rules on every thread, DTensor
+               pools, B7 and B8 through the attention layers' local_map):
+               phase 8's 8 requests at 4 new tokens, clean (tokens equal
+               to phase 8's loop up to near-ties) and with member 0 late
+               on every decode step (member 1 equal to the loop), every
+               launch on the tensor-core routes, and the decode step's
+               host and device ms on the mesh beside the plain step's.
 
 ``python3 chip_smoke.py --distil-lrs 1e-4,1e-3`` runs phase 9's
-distillation alone at each learning rate and prints no result line.
+distillation alone at each learning rate, and ``--sharded-only`` phase 14
+alone; neither prints a result line.
 
-The launch counters are zeroed before each of the eight paths (phases 3-4,
+The launch counters are zeroed before each of the nine paths (phases 3-4,
 the coded MLP serving path; phases 5-7, the scheme registry's path; phase 8,
 coded LM serving; phase 9, LM parity training and serving the trained model;
 phase 10, MoE / SSM / hybrid LM serving; phase 11, cross-attention and
 encoder-decoder LM serving; phase 12, the launch steps on a device mesh;
-phase 13, the example twins) and
+phase 13, the example twins; phase 14, sharded LM serving) and
 read after it; every kernel of a path must have run on it.
 Launches made only to compare a kernel path with its plain twin are not
 counted.  The last two lines of
@@ -594,22 +605,29 @@ def one_launch(label, fn, kernel, per_call=1):
     ``kernel`` (of any of its instances) and no other device operation.
     The calls are traced in two windows and each operation counted at its
     larger count: a trace now and then loses one kernel event (a window of
-    20 B8 calls read 19 once), which the other window shows; an extra or
-    missing operation of the calls themselves shows in both.  A window
+    20 B8 calls read 19 once), which the other window shows; an extra
+    operation of the calls themselves shows in every window.  A window
     that holds no device event at all lost its trace (20 B8 calls read
     nothing twice in a row once, in a run whose other traces lost events
-    too): up to four more windows are traced until two hold events; calls
-    that launch nothing read empty in all six and fail."""
+    too), and on some machines every window loses events (three windows of
+    20 B3 calls read 19, 9 and nothing): up to four more windows are
+    traced until two hold events and the larger counts reach the calls'
+    launches; calls that launch too few read too few in all six and
+    fail."""
     windows = [device_ops(fn), device_ops(fn)]
-    while sum(map(bool, windows)) < 2 and len(windows) < 6:
+
+    def larger(windows):
+        full = [w for w in windows if w] or [{}]
+        return full, {key: max(w.get(key, 0) for w in full)
+                      for key in set().union(*full)}
+    while (sum(map(bool, windows)) < 2 or sum(larger(windows)[1].values())
+           < 20 * per_call) and len(windows) < 6:
         windows.append(device_ops(fn))
-    full = [w for w in windows if w] or [{}]
+    full, seen = larger(windows)
     if len(full) < len(windows):
         log(f"[kernels] {label}: {len(windows) - len(full)} of "
             f"{len(windows)} traced windows held no device event")
     first, second = full[0], full[-1]
-    seen = {key: max(w.get(key, 0) for w in full)
-            for key in set().union(*full)}
     if first != second:
         log(f"[kernels] {label}: the traced windows differ ({first} / "
             f"{second}); counted at the larger")
@@ -1493,7 +1511,7 @@ def lm_greedy(cfg, params, prompt, seq=LM_SEQ, **context):
     return toks, gaps, second, ranked
 
 
-def check_tokens(label, served, loop, any_rank=False):
+def check_tokens(label, served, loop, any_rank=False, new=LM_NEW):
     """Served tokens against the loop's, under the near-tie rule; returns
     (step, gap) where they first differ, or None.  The served token must be
     the loop's runner-up at a top-2 gap below LM_GAP_TOL or, with
@@ -1501,8 +1519,8 @@ def check_tokens(label, served, loop, any_rank=False):
     of its best: an SSM carries the server's batch-4 rounding forward in
     its state, and its bf16 logits meet three-way near-ties."""
     toks, gaps, second, ranked = loop
-    if len(served) != LM_NEW:
-        raise AssertionError(f"{label}: {len(served)} tokens, not {LM_NEW}")
+    if len(served) != new:
+        raise AssertionError(f"{label}: {len(served)} tokens, not {new}")
     for t, (a, b) in enumerate(zip(served, toks)):
         if a != b:
             if gaps[t] < LM_GAP_TOL and a == second[t]:
@@ -1537,12 +1555,12 @@ def lm_teacher_forced(cfg, params, prompt, cont):
 
 
 def lm_serve(cfg, params, prompts, straggle_ms, delay_fn=None,
-             parity_params=None, mesh=None):
+             parity_params=None, mesh=None, new=LM_NEW):
     spec = GenerationSpec(
         cfg=cfg, params=params, parity_params=parity_params, k=K, r=1,
         scheme="sum",
         batching=BatchingPolicy(max_size=LM_SLOTS), max_seq_len=LM_SEQ,
-        max_new_tokens=LM_NEW, straggle_ms=straggle_ms, delay_fn=delay_fn,
+        max_new_tokens=new, straggle_ms=straggle_ms, delay_fn=delay_fn,
         mesh=mesh, device=DEV)
     t0 = time.perf_counter()
     with deploy_lm(spec, engine="threads") as sess:
@@ -1565,10 +1583,11 @@ def log_serve(label, stats, setup_s, serve_s, straggle_ms, tag="lm"):
         f"(n={stats.n} samples, {max(0, int(stats.n * 0.01))} beyond p99)")
 
 
-def host_ms(fn, iters=5, warmup=1):
-    """Host-clock time of one call of ``fn`` under inference mode,
-    synchronized, mean of ``iters`` after ``warmup`` calls."""
-    with torch.inference_mode():
+def host_ms(fn, iters=5, warmup=1, grad_off=torch.inference_mode):
+    """Host-clock time of one call of ``fn`` under ``grad_off`` (inference
+    mode; DTensors need ``torch.no_grad``), synchronized, mean of
+    ``iters`` after ``warmup`` calls."""
+    with grad_off():
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
@@ -1622,7 +1641,7 @@ def device_profile(fn):
 
 
 def check_straggler_serve(label, futs, stats, loops, tag="lm",
-                          any_rank=False):
+                          any_rank=False, new=LM_NEW):
     """Member 0 late on every job: its streams rebuilt, member 1's equal to
     the uncoded loop (up to bf16 near-ties).  Returns the share of member
     0's tokens that match the loop's."""
@@ -1630,14 +1649,14 @@ def check_straggler_serve(label, futs, stats, loops, tag="lm",
     member1 = [f for f in futs if f.rid >= LM_SLOTS]
     member0 = [f for f in futs if f.rid < LM_SLOTS]
     if not stats.reconstructed_steps > 0 or any(
-            len(f.result()) != LM_NEW for f in futs):
+            len(f.result()) != new for f in futs):
         raise AssertionError(f"lm {label} run: {stats}")
     if any(f.reconstructed_steps for f in member1) or not all(
             f.reconstructed_steps for f in member0):
         raise AssertionError(f"lm {label} run: reconstructions by rid "
                              f"{[f.reconstructed_steps for f in futs]}")
     ties = {f.rid: check_tokens(f"rid {f.rid}", f.result(), loops[f.rid],
-                                any_rank) for f in member1}
+                                any_rank, new) for f in member1}
     agree = float(np.mean([a == b for f in member0
                            for a, b in zip(f.result(), loops[f.rid][0])]))
     log(f"[{tag}] {label}: member-1 streams equal the uncoded loop "
@@ -3066,6 +3085,192 @@ def phase13():
     return path, summary
 
 
+# ----------------------------------------------------------- phase 14 ----
+# sharded LM serving (path 9): phase 8's qwen2-0.5b (seed 0, the same
+# weights) served by deploy_lm with GenerationSpec(mesh=...) on a (1, 1)
+# ("data", "model") mesh over one NCCL rank, its parameters DTensors, so the
+# session runs as on a larger mesh: an instance mesh with process groups of
+# its own per executor, the logical rules on every serving thread, DTensor
+# pools at the serving layout, and B7 and B8 through the attention layers'
+# local_map on the rank's shard of the batch and the KV heads.  A mesh of
+# one device would keep plain tensors (ShardingRules.distribute), so the
+# parameters are made DTensors here.  Two ranks sharing the card are not
+# run: NCCL refuses two ranks on one card, and gloo's all-gather of CUDA
+# tensors (full_tensor) has killed its process with SIGSEGV on torch 2.11
+# (PERF.md section 7).
+# tokens per request on this path: a quarter of phase 8's (a depth cut:
+# every op of a step goes through DTensor's dispatcher, ~0.07 ms of host
+# time each on torch 2.11, and three instances share the interpreter)
+SHARDED_NEW = LM_NEW // 4
+
+
+def replicated(tree, mesh):
+    """A tree of tensors as DTensors replicated on ``mesh``, with no copy."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return tree_map(lambda t: DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False), tree)
+
+
+def sharded_step(cfg, params, mesh, pos):
+    """A full-width decode step at batch LM_SLOTS on ``mesh`` as a serving
+    thread runs it (the serving rules, implicit replication, no_grad), over
+    a DTensor pool of LM_SEQ slots at the serving layout."""
+    from repro_torch.distributed.logical import implicit_replication
+    from repro_torch.serving.generation import (place_cache_pool,
+                                                serving_rules)
+    pool = place_cache_pool(T.init_cache(cfg, LM_SLOTS, LM_SEQ, device=DEV),
+                            mesh)
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEV)
+    pos = torch.tensor(pos, device=DEV)
+    rules = serving_rules(mesh)
+
+    def step():
+        with logical_rules(*rules), implicit_replication(), torch.no_grad():
+            T.decode_step(cfg, params, pool, pos, token=tok)
+    return step
+
+
+def sharded_serves(cfg, params, mesh, prompts, loops, served=None):
+    """deploy_lm on ``mesh``, SHARDED_NEW tokens per request: a clean serve whose tokens equal the loop's up to
+    near-ties (and, where ``served`` holds phase 8's tokens, how many
+    streams equal them), then member 0 late on every decode step (its
+    admissions' prefills on time), member 1's streams equal to the loop.
+    Returns a summary."""
+    futs, clean, setup_s, serve_s = lm_serve(cfg, params, prompts, 10_000.0,
+                                             mesh=mesh, new=SHARDED_NEW)
+    log_serve("no straggler", clean, setup_s, serve_s, 10_000.0,
+              tag="sharded")
+    ties = {f.rid: check_tokens(f"sharded rid {f.rid}", f.result(),
+                                loops[f.rid], new=SHARDED_NEW) for f in futs}
+    if clean.reconstructed_steps or clean.n != LM_REQUESTS * SHARDED_NEW:
+        raise AssertionError(f"sharded clean run: {clean}")
+    same = sum(f.result() == served[f.rid][:SHARDED_NEW] for f in futs) \
+        if served else None
+    tokens = [f.result() for f in futs]
+    vs_serve = (f"{same} of {LM_REQUESTS} streams token for token equal "
+                f"to phase 8's serve without a mesh" if served else
+                "phase 8's serve not run")
+    log(f"[sharded] no straggler: all {LM_REQUESTS} requests answered "
+        f"{SHARDED_NEW} tokens equal to phase 8's loop (first differing "
+        f"(step, top-2 gap) at a near-tie, by rid: "
+        f"{ {r: t for r, t in ties.items() if t is not None} }); "
+        f"{vs_serve}")
+
+    straggle_ms = max(25.0, 3.0 * clean.inter_token_p50_ms)
+    delay_s, slow, calls = 1.2 * straggle_ms / 1e3, instance_id("main", 0), []
+
+    def delay(iid):
+        # member 0's first LM_SLOTS jobs are its admissions' prefills
+        if iid != slow:
+            return 0.0
+        calls.append(iid)
+        return delay_s if len(calls) > LM_SLOTS else 0.0
+    futs, strag, setup_s, serve_s = lm_serve(cfg, params, prompts,
+                                             straggle_ms, delay, mesh=mesh,
+                                             new=SHARDED_NEW)
+    log_serve(f"member 0 delayed {delay_s * 1e3:.0f} ms per decode step",
+              strag, setup_s, serve_s, straggle_ms, tag="sharded")
+    agree = check_straggler_serve("straggler", futs, strag, loops,
+                                  tag="sharded", new=SHARDED_NEW)
+    return {"clean": {"completed_by": clean.completed_by, "n": clean.n,
+                      "tokens_per_s": clean.tokens_per_s,
+                      "p50_ms": clean.inter_token_p50_ms,
+                      "tokens": tokens,
+                      "streams_equal_to_unmeshed": same},
+            "straggler": {"completed_by": strag.completed_by,
+                          "reconstructed_steps": strag.reconstructed_steps,
+                          "straggle_ms": straggle_ms,
+                          "rebuilt_agreement": agree}}
+
+
+def phase14(ref, lm=None):
+    """Sharded LM serving on the card (path 9): (main-path launches,
+    summary).  ``ref`` holds phase 8's prompts and loops, and its served
+    tokens where phase 8 ran; ``lm`` phase 8's summary (None: not run)."""
+    from torch.distributed.tensor import DTensor
+    cfg = get_config(LM_ARCH)
+    params = T.init_params(cfg, 0, device=DEV)
+    prompts, loops = ref["prompts"], ref["loops"]
+    for c in [*ops.counters().values(), *k_flash.route_launches.values(),
+              *k_dattn.route_launches.values()]:
+        c.reset()
+    uncounted = Uncounted()
+    with launch_mesh.card_world():
+        mesh = launch_mesh.make_test_mesh((1, 1), device_type="cuda")
+        dparams = replicated(params, mesh)
+        n_dt = sum(isinstance(x, DTensor) for x in tree_leaves(dparams))
+        log(f"[sharded] mesh {mesh} over one rank "
+            f"({torch.distributed.get_backend()}); parameters and pools "
+            f"DTensors ({n_dt} parameter leaves)")
+        served = sharded_serves(cfg, dparams, mesh, prompts, loops,
+                                ref.get("served"))
+        # the decode step alone on the mesh, beside the plain step in this
+        # call (uncounted)
+        pos = [len(p) + LM_NEW // 2 for p in prompts[:LM_SLOTS]]
+        with uncounted():
+            step = sharded_step(cfg, dparams, mesh, pos)
+            mesh_ms = host_ms(step, iters=20, warmup=3, grad_off=torch.no_grad)
+            _, mesh_busy, mesh_ops = device_profile(
+                lambda: [step() for _ in range(3)])
+            plain_ms = decode_step_ms(cfg, params, pos)
+            cache = T.init_cache(cfg, LM_SLOTS, LM_SEQ, device=DEV)
+            tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEV)
+
+            def plain_steps():
+                with torch.inference_mode():
+                    for _ in range(3):
+                        T.decode_step(cfg, params, cache, torch.tensor(
+                            pos, device=DEV), token=tok)
+            _, plain_busy, plain_ops = device_profile(plain_steps)
+    path = {name: v - uncounted.n[name] for name, v in counts().items()}
+    del params, dparams
+    routes = {name: c.value for name, c in k_flash.route_launches.items()}
+    droutes = {name: c.value for name, c in k_dattn.route_launches.items()}
+    if routes != {"wgmma": counts()["flash_attention"], "simt": 0} or \
+            droutes != {"mma": counts()["decode_attention"], "simt": 0}:
+        raise AssertionError(f"sharded: B7 launches by route {routes}, B8 "
+                             f"{droutes}, of {counts()}: not all on the "
+                             f"tensor-core routes")
+    log(f"[sharded] B7 and B8 through the local_map route: B7 "
+        f"{path['flash_attention']} launches, B8 {path['decode_attention']} "
+        f"on the serving path; every launch of phase 14 on the tensor-core "
+        f"routes (measurements included: B7 {routes}, B8 {droutes})")
+    p8 = (f"; phase 8's plain step {lm['decode_step_ms']:.3f} ms host, "
+          f"{lm['decode_step_device_ms']:.3f} ms device" if lm else "")
+    log(f"[sharded] decode step batch {LM_SLOTS} at pos {pos} on the mesh: "
+        f"{mesh_ms:.3f} ms host (synchronized, mean of 20), "
+        f"{mesh_busy / 3 * 1e3:.3f} ms device, {mesh_ops / 3:.0f} device "
+        f"operations; the plain step in this call {plain_ms:.3f} ms host, "
+        f"{plain_busy / 3 * 1e3:.3f} ms device, {plain_ops / 3:.0f} "
+        f"operations{p8}; {smi_line()}")
+    log(f"[sharded] main-path launches {path} (measurement launches left "
+        f"out: {dict(uncounted.n)})")
+    missing = [name for name in PATH9 if path[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the sharded "
+                             f"serving path: {missing}")
+    return path, dict(
+        mesh=[1, 1], backend="nccl", **served, decode_step_ms=mesh_ms,
+        decode_step_device_ms=mesh_busy / 3 * 1e3,
+        decode_step_device_ops=mesh_ops / 3, plain_step_ms=plain_ms,
+        plain_step_device_ms=plain_busy / 3 * 1e3,
+        flash_routes=routes, decode_routes=droutes)
+
+
+def sharded_only():
+    """Phase 14 alone, after phase 1, with phase 8's uncoded loops made
+    here: prints its lines and no result line."""
+    phase_device()
+    cfg = get_config(LM_ARCH)
+    params = T.init_params(cfg, 0, device=DEV)
+    prompts = lm_prompts(cfg.vocab)
+    loops = [lm_greedy(cfg, params, p) for p in prompts]
+    del params
+    t0 = time.perf_counter()
+    phase14({"prompts": prompts, "loops": loops})
+    log(f"[time] phase 14 sharded: {time.perf_counter() - t0:.1f} s")
+
+
 def head_entry(row):
     """A kernel's measurements at another model's heads (phase 2)."""
     return {"shape": row["shape"], "max_abs_err": row["max_abs_err"],
@@ -3108,6 +3313,7 @@ PATH6 = ("flash_attention", "decode_attention")
 PATH7 = ("flash_attention", "decode_attention")
 PATH8 = ("parity_encode", "parity_decode", "flash_attention",
          "decode_attention")
+PATH9 = ("flash_attention", "decode_attention")
 
 
 def main():
@@ -3239,6 +3445,13 @@ def main():
         raise AssertionError(f"kernels never launched on the twins' path: "
                              f"{missing}")
 
+    # ---- path 9: sharded LM serving (phase 14)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path9, sharded = phase14(lm_ref, lm)
+    t14 = time.perf_counter()
+    log(f"[time] phase 14 sharded: {t14 - t13:.1f} s")
+
     kernels = []
     for name in ("parity_encode", "fused_encode_forward", "parity_decode",
                  "multigroup_decode", "learned_project", "berrut_encode",
@@ -3247,7 +3460,8 @@ def main():
                    "lm_serving": path3[name], "lm_training": path4[name],
                    "moe_ssm_serving": path5[name],
                    "cross_serving": path6[name],
-                   "distributed": path7[name], "twins": path8[name]}
+                   "distributed": path7[name], "twins": path8[name],
+                   "sharded_serving": path9[name]}
         kernels.append(kernel_entry(name, rows[name], sum(by_path.values()),
                                     by_path))
     log(json.dumps({"summary": {
@@ -3268,6 +3482,7 @@ def main():
         "cross": cross,
         "distributed": distributed,
         "twins": twins,
+        "sharded": sharded,
         "seconds": time.perf_counter() - t0}}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
@@ -3294,8 +3509,12 @@ if __name__ == "__main__":
     ap.add_argument("--distil-lrs", default=None,
                     help="comma-separated learning rates: run phase 9's "
                          "distillation alone at each and stop")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run phase 14 (sharded serving) alone and stop")
     args = ap.parse_args()
     if args.distil_lrs:
         lr_sweep([float(x) for x in args.distil_lrs.split(",")])
+    elif args.sharded_only:
+        sharded_only()
     else:
         main()

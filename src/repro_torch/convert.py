@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def resolve_device(device="cuda"):
@@ -57,7 +58,11 @@ def as_tensor(x, device):
 
 def to_host(x):
     """A tensor (or array-like) as a host numpy array (bfloat16, which numpy
-    has no type for, arrives as float32)."""
+    has no type for, arrives as float32).  A DTensor is gathered whole first
+    (``full_tensor``), over its mesh's process groups: on a serving
+    instance, from that instance's own thread."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()

@@ -79,6 +79,38 @@ def logical_rules(rules, axis_sizes, mesh=None):
         _STATE.rules, _STATE.sizes, _STATE.mesh = old
 
 
+_IMPLICIT = threading.Lock()
+_implicit = {"holders": 0, "before": False}
+
+
+@contextmanager
+def implicit_replication():
+    """PyTorch's ``implicit_replication`` (plain tensors meet DTensors as
+    replicated ones) for threads that overlap.  Newer torch keeps its
+    switch per thread; older torch (2.11) keeps one global flag, which each
+    holder's exit would clear under the others, so there the first holder
+    turns it on and the last restores it."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    dispatcher = DTensor._op_dispatcher
+    per_thread = hasattr(torch._C, "_set_dtensor_allow_implicit_replication")
+    with _IMPLICIT:
+        before = dispatcher._allow_implicit_replication
+        if not _implicit["holders"]:
+            _implicit["before"] = before
+        _implicit["holders"] += 1
+        dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        with _IMPLICIT:
+            _implicit["holders"] -= 1
+            if per_thread:
+                dispatcher._allow_implicit_replication = before
+            elif not _implicit["holders"]:
+                dispatcher._allow_implicit_replication = _implicit["before"]
+
+
 def mesh_axis_sizes(mesh):
     """{axis name: size} of a ``DeviceMesh`` (or anything with
     ``mesh_dim_names`` and ``shape``)."""

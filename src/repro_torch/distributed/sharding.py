@@ -145,10 +145,12 @@ class ShardingRules:
         V_axis = self._axis(vocab, self.tp) if vocab else self.tp
         return (self._batch_axis(batch), None, V_axis)
 
-    def cache_specs(self, cache_shapes):
+    def cache_specs(self, cache_shapes, whole_seq=False):
         """KV/SSM cache specs. Leaves are stacked [G, B, ...]:
         - attn k/v [G, B, S, KV, hd]: batch over batch-axes when divisible,
           else sequence over 'data' (long_500k B=1); kv-heads stay local.
+          With ``whole_seq`` (the serving pool's layout) the sequence stays
+          whole and the kv-heads shard over 'model' where it divides them.
         - ssm state [G, B, H, N, P]: batch, heads over 'model' when possible.
         - conv [G, B, W-1, C]: batch, channels over 'model'.
         - cross k/v [G, B, n_ctx, KV, hd]: like attn.
@@ -158,6 +160,8 @@ class ShardingRules:
             B = s[1]
             ba = self._batch_axis(B)
             used = set(ba or ())
+            if whole_seq and (name.endswith("/k") or name.endswith("/v")):
+                return (None, ba, None, self._axis(s[3], self.tp), None)
             if name.endswith("/k") or name.endswith("/v"):
                 # sequence shards over whatever the batch left unused
                 # (mirrors logical rule "seq": (model, data))

@@ -18,9 +18,11 @@ card.  Training differentiates the plain paths (``attn_backend="torch"``,
 
 Nor does any kernel take a ``DTensor`` (a tensor sharded over a device
 mesh): every op raises ``RuntimeError`` on one, on both devices, rather
-than run on a local shard or fall back to a plain version.  On a mesh of one
-device the launch steps hand the ops plain tensors; kernels over the local
-shards of a sharded mesh are ``ROADMAP.md`` B.4.
+than run on a local shard or fall back to a plain version.  The attention
+layers hand B7 and B8 each rank's plain local shard of the batch and the
+KV heads through a ``local_map`` (``models.layers._local_heads`` and
+``_decode_kernel``); on a mesh of one device the launch steps hand the ops
+plain tensors.
 """
 from __future__ import annotations
 
@@ -76,9 +78,10 @@ def _no_dtensor(name, *xs):
     docstring)."""
     if any(isinstance(x, DTensor) for x in xs):
         raise RuntimeError(
-            f"{name} takes no DTensor: the kernels run on plain tensors (a "
-            "mesh of one device, or attn_backend='torch' on a sharded mesh);"
-            " kernels over local shards are ROADMAP.md B.4")
+            f"{name} takes no DTensor: the kernels run on plain tensors, "
+            "and on a mesh on each rank's local shard, which the attention "
+            "layers hand them through a local_map under the launcher's "
+            "logical rules (models.layers._local_heads, _decode_kernel)")
 
 
 def _f32(x, device):

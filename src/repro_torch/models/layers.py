@@ -26,7 +26,9 @@ back into a width (before ``wo``), the constraint comes *before* the
 reshape, its divisibility guard reading the head count: DTensor cannot
 split a width sharded 16 ways into 14 heads, where GSPMD reshards on its
 own.  The block scan runs on each rank's local shard of the batch and the
-KV heads (``_local_heads``).
+KV heads (``_local_heads``), and so do the kernels on DTensors: B7 through
+the same ``_local_heads``, B8 through ``_decode_kernel`` (the ops take
+plain tensors only, and get each rank's local shard).
 
 Decode writes the new key/value row into the cache IN PLACE (the JAX
 package rebinds an immutable pool): callers that need the old cache clone
@@ -37,7 +39,10 @@ select over a slot mask on each rank's shard instead (``_write_slot``):
 DTensor would run a slice assignment on a gathered copy and refuses an
 ``index_put_`` that needs a placement change.  Decode attention over such a
 cache keeps its scores on their sequence shards (``_decode_sharded``): a
-local max and sum, all-reduced, as flash decoding combines its splits.
+local max and sum, all-reduced, as flash decoding combines its splits.  On
+the "kernels" backend a DTensor cache keeps its sequence whole on each rank
+(the serving pool's layout), and the new row is written by an
+``index_put_`` into each rank's local cache inside B8's ``local_map``.
 """
 from __future__ import annotations
 
@@ -465,7 +470,8 @@ def self_attention_fwd(cfg, p, x, rope_cs, *, window=0, q_offset=0,
     k = apply_rope(k, cos, sin)
     if backend == "kernels" and not q_offset:
         from repro_torch.kernels import ops as kernel_ops
-        o = kernel_ops.flash_attention_op(q, k, v, causal=True, window=window)
+        o = _local_heads(lambda q, k, v: kernel_ops.flash_attention_op(
+            q, k, v, causal=True, window=window), q, k, v)
     else:
         o = flash_attention_xla(q, k, v, causal=True, window=window,
                                 q_offset=q_offset)
@@ -515,6 +521,12 @@ def self_attention_decode(cfg, p, x, cache, pos, rope_cs, *, window=0,
     S = k_cache.shape[1]
     pos = pos.to(device=x.device, dtype=torch.long) if vector else int(pos)
     slot = pos % S if window else pos
+    kpos = pos if kernel_pos is None else kernel_pos
+    if backend == "kernels" and isinstance(k_cache, DTensor):
+        # the row written and attended over in one local_map
+        o = _decode_kernel(q[:, 0], k_cache, v_cache, kpos,
+                           rows=(k[:, 0], v[:, 0], slot))
+        return merge_heads(o[:, None].to(q.dtype)) @ p["wo"], cache
     if isinstance(k_cache, DTensor):
         _write_slot(k_cache, k, slot)
         _write_slot(v_cache, v, slot)
@@ -527,14 +539,61 @@ def self_attention_decode(cfg, p, x, cache, pos, rope_cs, *, window=0,
         k_cache[:, slot:slot + 1] = k
         v_cache[:, slot:slot + 1] = v
     if backend == "kernels":
-        from repro_torch.kernels import ops as kernel_ops
-        o = kernel_ops.decode_attention_op(
-            q[:, 0], k_cache, v_cache,
-            pos if kernel_pos is None else kernel_pos)
+        o = _decode_kernel(q[:, 0], k_cache, v_cache, kpos)
         o = o[:, None].to(q.dtype)
     else:
         o = attention_decode_xla(q, k_cache, v_cache, pos, window=window)
     return merge_heads(o) @ p["wo"], cache
+
+
+def _decode_kernel(q, k_cache, v_cache, pos, rows=None):
+    """``kernels.ops.decode_attention_op`` (q [B, H, hd]), and on a DTensor
+    cache on each rank's shard of the batch and the KV heads: the query's
+    heads shard as the cache's KV heads do (whole GQA groups, as
+    ``group_heads`` constrains them), the positions as its batch, and the
+    sequence stays whole on each rank.  ``rows`` (the new key and value
+    rows [B, KV, hd] and their slot, an int or a [B] tensor) are first
+    written into the shard's cache in place, in the same ``local_map``: one
+    row per batch row, an ``index_put_`` into the local tensor that is the
+    pool's own storage.  A cache sharded along its sequence raises
+    ``ValueError``: B8 returns no log-sum-exp that the shards' partial
+    softmaxes could be combined with (``ROADMAP.md`` B.5); the "torch"
+    backend serves such a cache (``_decode_sharded``)."""
+    from repro_torch.kernels import ops as kernel_ops
+    if not isinstance(k_cache, DTensor):
+        return kernel_ops.decode_attention_op(q, k_cache, v_cache, pos)
+    mesh, pl = k_cache.device_mesh, tuple(k_cache.placements)
+    if any(p.is_shard() and p.dim not in (0, 2) for p in pl):
+        raise ValueError(
+            f"the decode-attention kernel runs on whole sequences: a cache "
+            f"placed {pl} shards its sequence or head dim over the mesh; "
+            f"serve it on attn_backend='torch' (ROADMAP.md B.5)")
+    q_pl = [Shard({0: 0, 2: 1}[p.dim]) if p.is_shard() else Replicate()
+            for p in pl]
+    pos_pl = [p if p == Shard(0) else Replicate() for p in pl]
+    B = q.shape[0]
+
+    def per_row(t, dtype):
+        if isinstance(t, torch.Tensor) and t.ndim:
+            return t.to(dtype)
+        return torch.full((B,), int(t), dtype=dtype, device=k_cache.device)
+    args = [q, k_cache, v_cache, _replicated(per_row(pos, torch.int32), mesh)]
+    if rows is None:
+        return local_map(kernel_ops.decode_attention_op, out_placements=q_pl,
+                         in_placements=(q_pl, pl, pl, pos_pl),
+                         device_mesh=mesh, redistribute_inputs=True)(*args)
+
+    def write_and_attend(q, kc, vc, p, kr, vr, slot):
+        i = torch.arange(kc.shape[0], device=kc.device)
+        kc.index_put_((i, slot), kr)
+        vc.index_put_((i, slot), vr)
+        return kernel_ops.decode_attention_op(q, kc, vc, p)
+    kr, vr, slot = rows
+    return local_map(write_and_attend, out_placements=q_pl,
+                     in_placements=(q_pl, pl, pl, pos_pl, q_pl, q_pl, pos_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        *args, kr.to(k_cache.dtype), vr.to(v_cache.dtype),
+        _replicated(per_row(slot, torch.long), mesh))
 
 
 def _write_slot(cache, row, slot):
@@ -552,8 +611,12 @@ def _write_slot(cache, row, slot):
     else:
         hit = (kpos == slot)[None, :].expand(B, S)
     row_pl = [Replicate() if p == Shard(1) else p for p in pl]
+    # the mask [B, S, 1, 1] shards as the cache's batch and sequence only
+    hit_pl = [p if p.is_shard() and p.dim in (0, 1) else Replicate()
+              for p in pl]
     new = local_map(lambda c, r, m: torch.where(m, r, c),
-                    out_placements=list(pl), in_placements=(pl, row_pl, pl),
+                    out_placements=list(pl),
+                    in_placements=(pl, row_pl, hit_pl),
                     device_mesh=mesh, redistribute_inputs=True)(
         cache, row.to(cache.dtype),
         _replicated(hit[:, :, None, None].contiguous(), mesh))

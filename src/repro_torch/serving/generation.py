@@ -54,22 +54,34 @@ step before its next one — the cache-repair rule is unchanged.  A decode
 advances an SSM state, so each served pool sees exactly the decodes the
 reference keeps: one per coded step, and none from the warm-up.  Executors launch on PyTorch's current
 stream; ``to_host`` on the logits is the sync point.  ``GenerationSpec``
-keeps the reference's ``mesh`` (``place_inference_params``), on one device
-only, and gains
+keeps the reference's ``mesh`` (``place_inference_params``) and gains
 ``device`` and ``hardware`` (the sim engine's roofline device).
+
+On a mesh the session is SPMD, where the reference drives every device
+from one process: every rank builds the same session and submits the same
+requests, the mesh's first rank decides every scheduler round and
+broadcasts it (``GenerationSession``), each instance's executor owns
+process groups of its own (``_instance_mesh``) and runs under that mesh's
+logical rules, and the pools are DTensors with the sequence whole on each
+rank (``place_cache_pool``), so B7 and B8 run on each rank's shard of the
+batch and the KV heads (``models.layers``).
 """
 from __future__ import annotations
 
 import queue
 import threading
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from repro_torch.convert import resolve_device, to_host, tree_leaves
+from repro_torch.convert import resolve_device, to_host, tree_leaves, tree_map
+from repro_torch.distributed import logical
 from repro_torch.core.scheme import get_scheme
 from repro_torch.serving.api import (BatchingPolicy, DeploymentSpec, Trace,
                                      deploy)
@@ -101,12 +113,16 @@ class GenerationSpec:
     / ``tp`` / ``hardware`` calibrate the sim engine's token-level service
     model.  ``device`` is where the threads engine runs (default ``"cuda"``;
     constructing a spec raises without a card unless ``device="cpu"``).
-    ``mesh``, a ``DeviceMesh`` of one device, puts the parameters on its
-    inference layout (``place_inference_params``): they stay plain tensors
-    on its device and the kernels serve as without a mesh.  A larger mesh
-    raises here: its DTensor parameters reach the kernels, which refuse
-    them, and the serving threads run outside the logical rules
-    (``ROADMAP.md`` B.4).
+    ``mesh``, a ``("data", "model")`` ``DeviceMesh``, puts the parameters
+    on its inference layout (``place_inference_params``).  On a mesh of one
+    device they stay plain tensors and the session serves as without a
+    mesh; on a larger mesh the session is SPMD (``GenerationSession``).
+    DTensor parameters on a mesh of one device also take the SPMD path:
+    that is a hook for checking the sharded path on one card
+    (``chip_smoke.py`` phase 14), not a way to deploy.  A plan or a mesh
+    that does not serve raises ``ValueError`` here, naming its
+    ``ROADMAP.md`` item (``_refusal``): several cards over NCCL (C.3), a
+    cross-attending plan or a substrate override (B.5).
     """
 
     cfg: Any = None
@@ -136,8 +152,8 @@ class GenerationSpec:
     embed_fn: Optional[Callable] = None
     init_cache_fn: Optional[Callable] = None
 
-    # distributed placement: a DeviceMesh of one device puts params on the
-    # inference layout (distributed/sharding.py, fsdp_params=False)
+    # distributed placement: params on the mesh's inference layout
+    # (distributed/sharding.py, fsdp_params=False)
     mesh: Any = None
 
     device: str = "cuda"
@@ -158,11 +174,14 @@ class GenerationSpec:
         if not isinstance(self.batching, BatchingPolicy):
             raise TypeError(
                 f"batching must be a BatchingPolicy, got {self.batching!r}")
-        if self.mesh is not None and self.mesh.size() > 1:
-            raise ValueError(
-                f"GenerationSpec serves on a mesh of one device, got "
-                f"{tuple(self.mesh.shape)}: serving on a sharded mesh is "
-                f"ROADMAP.md B.4")
+        if self.mesh is not None and (self.mesh.size() > 1 or any(
+                isinstance(x, DTensor) for x in tree_leaves(self.params))):
+            why = _refusal(self)
+            if why is not None:
+                raise ValueError(
+                    f"GenerationSpec does not serve on the mesh "
+                    f"{tuple(self.mesh.shape)}: {why[0]} (ROADMAP.md "
+                    f"{why[1]})")
         resolve_device(self.device)
 
     def replace(self, **changes) -> "GenerationSpec":
@@ -232,14 +251,14 @@ class _Stream:
     __slots__ = ("rid", "prompt", "max_new", "pos", "next_token", "future",
                  "t_admit")
 
-    def __init__(self, rid, prompt, max_new, future):
+    def __init__(self, rid, prompt, max_new, future, t_admit):
         self.rid = rid
         self.prompt = prompt             # list[int], inputs already consumed
         self.max_new = max_new
         self.pos = len(prompt)           # cache fill == next write position
         self.next_token = None           # canonical feedback token
         self.future = future
-        self.t_admit = time.monotonic()
+        self.t_admit = t_admit           # the decider's clock
 
     @property
     def history(self):
@@ -252,11 +271,17 @@ class _Executor(threading.Thread):
     """One model instance: a worker thread draining a FIFO job queue.
 
     FIFO order IS the cache-repair rule: a straggling decode step finishes
-    (and updates this instance's cache) before the next step dequeues."""
+    (and updates this instance's cache) before the next step dequeues.  On
+    a mesh the thread runs under its instance's logical rules (``rules``,
+    thread-local) and each job under ``per_job`` (the shared implicit
+    replication); a job's error is also handed to ``on_error``."""
 
-    def __init__(self, name):
+    def __init__(self, name, dev, rules=None, per_job=nullcontext,
+                 on_error=None):
         super().__init__(name=name, daemon=True)
         self.jobs = queue.Queue()
+        self.dev, self.rules, self.per_job = dev, rules, per_job
+        self.on_error = on_error
 
     def submit(self, fn):
         evt, out = threading.Event(), {}
@@ -264,41 +289,83 @@ class _Executor(threading.Thread):
         return evt, out
 
     def run(self):
-        while True:
-            job = self.jobs.get()
-            if job is _SHUTDOWN:
-                break
-            fn, evt, out = job
-            try:
-                out["result"] = fn()
-            except Exception as e:        # surfaced at collection time
-                out["error"] = e
-            evt.set()
+        if self.dev.type == "cuda":
+            # the current device is per thread; the kernels launch on it
+            torch.cuda.set_device(self.dev)
+        # on a mesh, a stream of its own: instances sharing the default
+        # stream would order one instance's collectives behind another's
+        # work, differently on each rank, and deadlock across ranks
+        stream = torch.cuda.Stream(self.dev) if (
+            self.rules and self.dev.type == "cuda") else None
+        with (logical.logical_rules(*self.rules) if self.rules
+              else nullcontext()), \
+                (torch.cuda.stream(stream) if stream else nullcontext()):
+            while True:
+                job = self.jobs.get()
+                if job is _SHUTDOWN:
+                    break
+                fn, evt, out = job
+                try:
+                    with self.per_job():
+                        out["result"] = fn()
+                except Exception as e:    # surfaced at collection time
+                    out["error"] = e
+                    if self.on_error is not None:
+                        self.on_error(e)
+                evt.set()
 
     def stop(self):
         self.jobs.put(_SHUTDOWN)
 
 
+class _Stopped(RuntimeError):
+    """A scheduler exchange on a mesh failed, or reported a rank's
+    failure: every rank raises it at the same exchange."""
+
+
+def _result(job):
+    """Block for a submitted job; its result, or its error raised here."""
+    evt, out = job
+    evt.wait()
+    if "error" in out:
+        raise out["error"]
+    return out["result"]
+
+
+class _Instance:
+    """One of the k + r model instances: its executor, the parameters it
+    serves, the deployed parameters it embeds tokens with (a parity
+    instance encodes the members' embeddings), its cache pool, and, on a
+    mesh, the ``DeviceMesh`` whose process groups are its own."""
+
+    __slots__ = ("ex", "params", "embed_params", "pool", "iid", "mesh")
+
+    def __init__(self, ex, params, embed_params, iid, mesh=None):
+        self.ex, self.params, self.embed_params = ex, params, embed_params
+        self.iid, self.mesh, self.pool = iid, mesh, None
+
+
 # --------------------------------------------------------------------------
 # Default substrate: repro_torch.models.transformer
 # --------------------------------------------------------------------------
-def _transformer_fns(spec):
+def _transformer_fns(spec, grad_off=torch.inference_mode):
     from repro_torch.models import transformer as T
     cfg = spec.cfg
 
-    # inference_mode is per thread: each call enters it on the executor
-    # thread that runs it
-    @torch.inference_mode()
+    # grad_off is per thread: each call enters it on the executor thread
+    # that runs it (inference_mode, or no_grad for DTensors, which fail
+    # under inference_mode)
+    @grad_off()
     def prefill_fn(params, tokens=None, embeds=None, cache_len=0):
         return T.prefill(cfg, params, tokens=tokens, embeds=embeds,
                          cache_len=cache_len)
 
-    @torch.inference_mode()
+    @grad_off()
     def decode_fn(params, cache, pos, token=None, embed=None):
         return T.decode_step(cfg, params, cache, pos, token=token,
                              embed=embed)
 
-    @torch.inference_mode()
+    @grad_off()
     def embed_fn(params, tokens):
         return T.embed_tokens(cfg, params, tokens)
 
@@ -308,7 +375,7 @@ def _transformer_fns(spec):
     return prefill_fn, decode_fn, embed_fn, init_cache_fn
 
 
-def _resolve_fns(spec):
+def _resolve_fns(spec, grad_off=torch.inference_mode):
     if spec.prefill_fn is not None:
         return (spec.prefill_fn, spec.decode_fn, spec.embed_fn,
                 spec.init_cache_fn)
@@ -316,7 +383,7 @@ def _resolve_fns(spec):
         raise ValueError(
             "GenerationSpec needs cfg= and params= (or a full "
             "prefill_fn/decode_fn/embed_fn/init_cache_fn substrate)")
-    return _transformer_fns(spec)
+    return _transformer_fns(spec, grad_off)
 
 
 def place_inference_params(params, mesh):
@@ -329,12 +396,113 @@ def place_inference_params(params, mesh):
     return rules.distribute(params, rules.params(params))
 
 
+def place_cache_pool(pool, mesh):
+    """A serving cache pool (``init_cache``'s tree, leaves [G, slots, ...])
+    as DTensors on ``mesh``, a mesh of one device too (the pool of DTensor
+    parameters): attention K/V [G, slots, S, KV, hd] with the slots over
+    the batch axes where they divide them, the KV heads over ``model``
+    where it divides them and the sequence whole on every rank; SSM states
+    and conv tails as ``ShardingRules.cache_specs`` places them.
+
+    The sequence stays whole because the decode-attention kernel (B8) runs
+    on each rank's local shard and returns no log-sum-exp that shards of a
+    sequence could be combined with (``layers._decode_kernel``).  Each rank
+    keeps its own block of the (zero) pool: nothing is communicated."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.logical import placements
+    from repro_torch.distributed.sharding import ShardingRules, _zip_map
+    rules = ShardingRules(mesh, fsdp_params=False)
+    specs = rules.cache_specs(pool, whole_seq=True)
+    return _zip_map(lambda x, spec: distribute_tensor(
+        x, mesh, placements(spec, mesh), src_data_rank=None), pool, specs)
+
+
+def _instance_mesh(mesh):
+    """A ``DeviceMesh`` over the ranks and axes of ``mesh`` whose process
+    groups are new ones (one per distinct row of ranks along an axis), so
+    that one instance's collectives never share a sequence with another's:
+    each executor thread issues its own in its own FIFO order.  Every rank
+    calls this in the same order.  Returns (mesh, its groups)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks, me = mesh.mesh, dist.get_rank()
+    made, groups = {}, []
+    for d in range(ranks.ndim):
+        mine = None
+        for row in ranks.movedim(d, -1).reshape(-1, ranks.shape[d]).tolist():
+            if tuple(row) not in made:
+                made[tuple(row)] = dist.new_group(row)
+            if me in row:
+                mine = made[tuple(row)]
+        groups.append(mine)
+    return DeviceMesh.from_group(
+        groups if ranks.ndim > 1 else groups[0], mesh.device_type,
+        mesh=ranks, mesh_dim_names=mesh.mesh_dim_names), list(made.values())
+
+
+def serving_rules(mesh):
+    """The logical rules a serving thread enters on ``mesh`` (arguments of
+    ``logical.logical_rules``): the launcher's, with the inference layout's
+    resident expert weights (``fsdp_params`` False)."""
+    lrules, sizes = logical.rules_for_mesh(mesh)
+    lrules["fsdp_params"] = False
+    return lrules, sizes, mesh
+
+
+def _rewrap(tree, mesh):
+    """A DTensor tree's local shards as DTensors on ``mesh`` (an instance
+    mesh over the same ranks): no storage is copied."""
+    return tree_map(lambda t: DTensor.from_local(
+        t.to_local(), mesh, t.placements, run_check=False, shape=t.shape,
+        stride=t.stride()) if isinstance(t, DTensor) else t, tree)
+
+
 def _write_slot(pool, one, s):
     """Copy a batch-1 cache ``one`` into slot column s of ``pool``, leaf by
     leaf, in place (axis 1 is the slot axis, as in the reference's
-    ``pool.at[:, s:s+1].set(one)``)."""
+    ``pool.at[:, s:s+1].set(one)``).  A DTensor leaf takes an elementwise
+    select over a slot mask on each rank's shard, then ``copy_``: DTensor
+    runs a slice assignment on a gathered copy and loses the write
+    (``ROADMAP.md`` C.1)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.models.layers import _replicated
     for dst, src in zip(tree_leaves(pool), tree_leaves(one)):
-        dst[:, s:s + 1] = src
+        if not isinstance(dst, DTensor):
+            dst[:, s:s + 1] = src
+            continue
+        mesh, pl = dst.device_mesh, list(dst.placements)
+        src_pl = [Replicate() if p == Shard(1) else p for p in pl]
+        hit_pl = [Shard(0) if p == Shard(1) else Replicate() for p in pl]
+        hit = torch.arange(dst.shape[1], device=dst.device) == s
+        lead = (1,) * (dst.ndim - 2)
+
+        def select(c, r, m, lead=lead):
+            return torch.where(m.view(1, -1, *lead), r, c)
+        dst.copy_(local_map(select, out_placements=pl,
+                            in_placements=(pl, src_pl, hit_pl),
+                            device_mesh=mesh, redistribute_inputs=True)(
+            dst, src.to(dst.dtype), _replicated(hit, mesh)))
+
+
+def _refusal(spec):
+    """Why ``spec`` may not serve on its mesh and the ``ROADMAP.md`` item
+    that says so, or None.  A mesh serves the transformer substrate of the
+    plans this port has held to the unsharded port and to the reference on
+    a sharded mesh (``tests/test_torch_sharded_serving.py``), on CPU ranks
+    over gloo and on one card."""
+    cfg = spec.cfg
+    if spec.mesh.size() > 1 and spec.mesh.device_type == "cuda":
+        return ("on several cards over NCCL the session has hung before "
+                "its first token", "C.3")
+    if spec.prefill_fn is not None:
+        return ("a substrate override (prefill_fn, ...) is not mesh-aware",
+                "B.5")
+    if cfg is None:
+        return "a mesh serves the transformer substrate of cfg=", "B.5"
+    if cfg.enc_dec or cfg.cross_attn_every:
+        return (f"{cfg.name} cross-attends, and the session hands its "
+                f"prefill no cross_embeds", "B.5")
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -347,6 +515,21 @@ class GenerationSession:
     ``ServingReport`` whose completions are decode steps (so ``median_ms``
     etc. ARE inter-token latencies) plus the per-token fields
     (``tokens_per_s``, ``inter_token_p50/p999_ms``, ``reconstructed_steps``).
+
+    On a mesh of more than one device the session is SPMD: every rank
+    builds it from the same spec, and callers submit the same requests in
+    the same order on every rank, as in any ``torch.distributed`` program.
+    The mesh's first rank decides each scheduler round (which waiting
+    request enters which (member, slot), which members missed the step's
+    deadline, the tokens emitted and so which streams finish, when to
+    stop), with its own clock's timestamps, and broadcasts the round on a
+    gloo side group; the other ranks apply it.  So no rank decides on its
+    own clock, and ``stats()`` and every future agree on every rank.
+    Every exchange also carries each rank's failure, if it has one (a job's
+    error, or its scheduler's): then every rank's scheduler stops there and
+    ``wait_all`` raises it on every rank.  Four processes on a CPU (gloo)
+    mesh serve the reference's tokens; several cards over NCCL are refused
+    (``ROADMAP.md`` C.3).
     """
 
     engine = "threads"
@@ -354,12 +537,12 @@ class GenerationSession:
     def __init__(self, spec: GenerationSpec):
         self.spec = spec
         self.dev = resolve_device(spec.device)
+        if self.dev.type == "cuda" and self.dev.index is None:
+            # this thread's card, for every serving thread
+            self.dev = torch.device("cuda", torch.cuda.current_device())
         self.scheme = get_scheme(spec.scheme, k=spec.k, r=spec.r,
-                                 device=spec.device)
-        self.coeffs = torch.as_tensor(self.scheme.coeffs, dtype=torch.float32,
-                                      device=self.dev)            # [r, k]
-        fns = _resolve_fns(spec)
-        self._prefill, self._decode, self._embed, self._init_cache = fns
+                                 device=self.dev)
+        self.coeffs = to_host(self.scheme.coeffs).astype(np.float32)  # [r, k]
         self.k, self.r = spec.k, spec.r
         self.n_slots = spec.batching.max_size
         self.max_seq = spec.max_seq_len
@@ -369,21 +552,25 @@ class GenerationSession:
             else params
         if spec.mesh is not None:
             params = place_inference_params(params, spec.mesh)
-            pparams = place_inference_params(pparams, spec.mesh)
+            pparams = params if spec.parity_params is None else \
+                place_inference_params(pparams, spec.mesh)
         self.params, self.parity_params = params, pparams
+        self._sharded = spec.mesh is not None and any(
+            isinstance(x, DTensor) for x in tree_leaves((params, pparams)))
+        fns = _resolve_fns(spec, torch.no_grad if self._sharded
+                           else torch.inference_mode)
+        self._prefill, self._decode, self._embed, self._init_cache = fns
 
-        # one fixed-shape cache pool per instance; slots never reshape
-        self._caches = [self._init_cache(params, self.n_slots, self.max_seq)
-                        for _ in range(self.k)]
-        self._pcaches = [self._init_cache(pparams, self.n_slots,
-                                          self.max_seq)
-                         for _ in range(self.r)]
-        self._ppos = np.zeros((self.r, self.n_slots), np.int64)
-
-        # (member, slot) occupancy
-        self._slots: List[List[Optional[_Stream]]] = [
-            [None] * self.n_slots for _ in range(self.k)]
-        self._dirty = set()              # slot columns needing parity rebuild
+        # the decider: the mesh's first rank, exchanging on a gloo group
+        self._groups, self._side, self._src = [], None, None
+        self._failed = None              # this rank's first failure
+        if spec.mesh is not None and spec.mesh.size() > 1:
+            ranks = spec.mesh.mesh.flatten().tolist()
+            self._src = ranks[0]
+            self._side_ranks = sorted(ranks)  # the group's own rank order
+            self._side = dist.new_group(ranks, backend="gloo")
+            self._groups.append(self._side)
+        self._decides = self._src is None or dist.get_rank() == self._src
 
         # fault adapters: scenario delays compose with the user delay_fn
         delay_fn = spec.delay_fn
@@ -398,35 +585,65 @@ class GenerationSession:
                 horizon_ms=spec.scenario_horizon_ms,
                 time_scale=spec.scenario_time_scale, extra=delay_fn)
         self._delay_fn = delay_fn
-        self._member_iids = [instance_id("main", i) for i in range(self.k)]
-        self._parity_iids = [instance_id(f"parity{j}", 0)
-                             for j in range(self.r)]
 
-        self._members = [_Executor(f"lm-member-{i}") for i in range(self.k)]
-        self._parities = [_Executor(f"lm-parity-{j}") for j in range(self.r)]
-        for ex in self._members + self._parities:
-            ex.start()
+        # k members and r parity instances; on a mesh each with process
+        # groups of its own, its parameters rewrapped onto them
+        roles = [("member", i, params, instance_id("main", i))
+                 for i in range(self.k)] + \
+            [("parity", j, pparams, instance_id(f"parity{j}", 0))
+             for j in range(self.r)]
+        self._members, self._parities = [], []
+        for role, n, p, iid in roles:
+            mesh = rules = None
+            ep = params
+            per_job = nullcontext
+            if self._sharded:
+                mesh, groups = _instance_mesh(spec.mesh)
+                self._groups += groups
+                p, ep = _rewrap(p, mesh), _rewrap(params, mesh)
+                rules = serving_rules(mesh)
+                per_job = logical.implicit_replication
+            inst = _Instance(_Executor(f"lm-{role}-{n}", self.dev, rules,
+                                       per_job, self._fail), p, ep, iid,
+                             mesh)
+            (self._members if role == "member" else self._parities).append(
+                inst)
+        self._instances = self._members + self._parities
+        if self._sharded and self.dev.type == "cuda":
+            # the parameters, placed on this thread's stream, before the
+            # instances' own streams read them
+            torch.cuda.current_stream(self.dev).synchronize()
+        for inst in self._instances:
+            inst.ex.start()
 
-        # warm the prefill and both decode paths before any deadline is
-        # armed — the kernels' build and first launches would otherwise read
-        # as a multi-second straggle on every instance at once, which no
-        # code survives.  The decodes write a scratch pool of the same shape
-        # that is then dropped, as the reference drops its warm-up caches:
-        # a decode advances an SSM state, so no served pool may see one.
-        tok0 = torch.zeros((self.n_slots, 1), dtype=torch.int32,
-                           device=self.dev)
-        pos0 = torch.zeros((self.n_slots,), dtype=torch.int32,
-                           device=self.dev)
-        self._prefill(self.params, tokens=tok0[:1], cache_len=self.max_seq)
-        scratch = self._init_cache(params, self.n_slots, self.max_seq)
-        self._decode(self.params, scratch, pos0, token=tok0)
-        self._decode(self.parity_params, scratch, pos0,
-                     embed=self._embed(self.params, tok0))
-        del scratch
+        # one fixed-shape cache pool per instance (slots never reshape),
+        # then the prefill and both decode paths warmed before any deadline
+        # is armed: the kernels' build and first launches would otherwise
+        # read as a multi-second straggle on every instance at once, which
+        # no code survives.  The decodes write a scratch pool of the served
+        # layout that is then dropped, as the reference drops its warm-up
+        # caches: a decode advances an SSM state, so no served pool may see
+        # one.  On a mesh each instance warms on its own thread, where its
+        # process groups and stream are; without one, once, here.
+        if self._sharded:
+            for job in [inst.ex.submit(lambda inst=inst: self._warm(inst))
+                        for inst in self._instances]:
+                _result(job)
+        else:
+            for inst in self._instances:
+                inst.pool = self._new_pool(inst)
+            self._warm_once()
+        self._ppos = np.zeros((self.r, self.n_slots), np.int64)
 
-        self._waiting: "queue.Queue" = queue.Queue()
-        self._lock = threading.Lock()
+        # (member, slot) occupancy
+        self._slots: List[List[Optional[_Stream]]] = [
+            [None] * self.n_slots for _ in range(self.k)]
+        self._dirty = set()              # slot columns needing parity rebuild
+
+        self._waiting: Dict[int, tuple] = {}   # rid -> request, in order
+        self._lock = threading.Condition()
         self._stopping = False
+        self._error = None
         self._idle = threading.Event()   # set while nothing queued/active
         self._idle.set()
         self._gaps_ms: List[float] = []
@@ -439,23 +656,66 @@ class GenerationSession:
                                            name="lm-scheduler", daemon=True)
         self._scheduler.start()
 
+    def _new_pool(self, inst):
+        pool = self._init_cache(inst.params, self.n_slots, self.max_seq)
+        if inst.mesh is not None:
+            pool = place_cache_pool(pool, inst.mesh)
+        return pool
+
+    def _warm_once(self):
+        tok0 = torch.zeros((self.n_slots, 1), dtype=torch.int32,
+                           device=self.dev)
+        pos0 = torch.zeros((self.n_slots,), dtype=torch.int32,
+                           device=self.dev)
+        self._prefill(self.params, tokens=tok0[:1], cache_len=self.max_seq)
+        scratch = self._new_pool(self._members[0])
+        self._decode(self.params, scratch, pos0, token=tok0)
+        self._decode(self.parity_params, scratch, pos0,
+                     embed=self._embed(self.params, tok0))
+
+    def _warm(self, inst):
+        inst.pool = self._new_pool(inst)
+        tok0 = torch.zeros((self.n_slots, 1), dtype=torch.int32,
+                           device=self.dev)
+        pos0 = torch.zeros((self.n_slots,), dtype=torch.int32,
+                           device=self.dev)
+        scratch = self._new_pool(inst)
+        if inst in self._members:
+            self._prefill(inst.params, tokens=tok0[:1],
+                          cache_len=self.max_seq)
+            self._decode(inst.params, scratch, pos0, token=tok0)
+        else:
+            self._prefill(inst.params, embeds=self._embed(
+                inst.embed_params, tok0[:1]), cache_len=self.max_seq)
+            self._decode(inst.params, scratch, pos0,
+                         embed=self._embed(inst.embed_params, tok0))
+
     # -- public surface ----------------------------------------------------
     def submit(self, prompt, max_new_tokens=None) -> GenerationFuture:
-        """Queue one generation request (prompt: sequence of token ids)."""
+        """Queue one generation request (prompt: sequence of token ids).  On
+        a mesh of more than one device, every rank submits the same
+        requests in the same order (see the class docstring)."""
         with self._lock:
             if self._stopping:
                 raise RuntimeError("session is shut down")
             rid = self._next_rid
             self._next_rid += 1
-        fut = GenerationFuture(rid)
-        self._idle.clear()
-        self._waiting.put((rid, [int(t) for t in prompt],
-                           max_new_tokens or self.spec.max_new_tokens, fut))
+            fut = GenerationFuture(rid)
+            self._idle.clear()
+            self._waiting[rid] = ([int(t) for t in prompt],
+                                  max_new_tokens or self.spec.max_new_tokens,
+                                  fut)
+            self._lock.notify_all()
         return fut
 
     def wait_all(self, timeout: float = 120.0) -> bool:
-        """Block until every submitted request has finished."""
-        return self._idle.wait(timeout)
+        """Block until every submitted request has finished; raises the
+        scheduler's error if it stopped on one."""
+        done = self._idle.wait(timeout)
+        if self._error is not None:
+            raise RuntimeError(f"the LM scheduler failed: {self._error}") \
+                from self._error
+        return done
 
     def stats(self) -> ServingReport:
         with self._lock:
@@ -484,11 +744,22 @@ class GenerationSession:
             if self._stopping:
                 return
             self._stopping = True
+            self._lock.notify_all()
         self._scheduler.join(timeout=60.0)
-        for ex in self._members + self._parities:
-            ex.stop()
-        for ex in self._members + self._parities:
-            ex.join(timeout=10.0)
+        for inst in self._instances:
+            inst.ex.stop()
+        # a straggler's late jobs run on; on a mesh they hold collectives
+        # that the other ranks' executors meet, so they are waited for
+        # before the groups go.  After a failure a job may wait for a rank
+        # that never comes; its groups are then left to their timeout.
+        wait_s = 300.0 if self._groups and self._error is None else 10.0
+        deadline = time.monotonic() + wait_s
+        for inst in self._instances:
+            inst.ex.join(timeout=max(0.0, deadline - time.monotonic()))
+        if not any(inst.ex.is_alive() for inst in self._instances):
+            for group in self._groups:
+                dist.destroy_process_group(group)
+            self._groups = []
 
     def __enter__(self):
         return self
@@ -498,26 +769,107 @@ class GenerationSession:
         return False
 
     # -- scheduler ---------------------------------------------------------
+    def _fail(self, e):
+        """Record this rank's first failure, for the next exchange."""
+        if self._failed is None:
+            self._failed = f"{type(e).__name__}: {e}"
+
+    def _share(self, obj):
+        """The decider's ``obj`` on every rank (``obj`` itself off a mesh).
+        Every rank sends its failure with it, if it has one; then every
+        rank raises ``_Stopped`` here, naming the ranks that failed."""
+        if self._side is None:
+            return obj
+        box = [None] * len(self._side_ranks)
+        try:
+            dist.all_gather_object(
+                box, (self._failed, obj if self._decides else None),
+                group=self._side)
+        except Exception as e:
+            raise _Stopped(f"the scheduler exchange failed: {e}") from e
+        failed = [f"rank {r}: {f}" for r, (f, _) in
+                  zip(self._side_ranks, box) if f is not None]
+        if failed:
+            raise _Stopped("; ".join(failed))
+        return box[self._side_ranks.index(self._src)][1]
+
     def _active(self):
         return [(i, s) for i in range(self.k) for s in range(self.n_slots)
                 if self._slots[i][s] is not None]
 
+    def _free(self):
+        return [(i, s) for i in range(self.k) for s in range(self.n_slots)
+                if self._slots[i][s] is None]
+
     def _loop(self):
-        while True:
-            self._admit()
-            active = self._active()
-            if not active:
+        if self.dev.type == "cuda":
+            torch.cuda.set_device(self.dev)
+        try:
+            while True:
+                plan = self._share(self._decide() if self._decides
+                                   else None)
+                if plan == "stop":
+                    break
+                self._admit(plan)
+                active = self._active()
+                if active:
+                    self._step(active)
                 with self._lock:
-                    stop = self._stopping
-                if self._waiting.empty():
+                    if not self._active() and not self._waiting:
+                        self._idle.set()
+        except Exception as e:           # surfaced by wait_all
+            if self._side is not None and not isinstance(e, _Stopped):
+                # the other ranks stop at the exchange they meet next, and
+                # every rank raises what that exchange says
+                self._fail(e)
+                try:
+                    self._share(None)
+                except _Stopped as stopped:
+                    e = stopped
+            self._error = e
+            self._idle.set()
+
+    def _decide(self):
+        """The decider's next round: the admissions [(rid, prompt,
+        max_new, member, slot, t_admit)] into free (member, slot) pairs in
+        order, once there are active streams or an admission; "stop" once
+        shut down with nothing active or waiting.  Waits while idle; on a
+        mesh, for a second at most, so that idle ranks still exchange (a
+        failure reaches them, and no exchange outwaits its group's
+        timeout)."""
+        beat = time.monotonic() + 1.0
+        with self._lock:
+            while True:
+                free, active = self._free(), self._active()
+                plan = [(rid, prompt, max_new, i, s, time.monotonic())
+                        for (rid, (prompt, max_new, _)), (i, s)
+                        in zip(self._waiting.items(), free)]
+                if plan or active:
+                    return plan
+                if not self._waiting:
                     self._idle.set()
-                    if stop:
-                        break
-                    time.sleep(1e-3)
-                    continue
-            else:
-                self._step(active)
-        # flush: nothing active remains by construction
+                    if self._stopping:
+                        return "stop"
+                if self._side is not None and time.monotonic() > beat:
+                    return plan
+                self._lock.wait(1e-3)
+
+    def _take(self, rid, prompt):
+        """Request ``rid`` out of the waiting queue: the decider's, or, on
+        another rank, the same request submitted there (waited for)."""
+        with self._lock:
+            if not self._lock.wait_for(lambda: rid in self._waiting,
+                                       timeout=300.0):
+                raise TimeoutError(
+                    f"request {rid} was admitted on rank {self._src} but "
+                    f"never submitted here: on a mesh every rank submits "
+                    f"the same requests in the same order")
+            mine, _, fut = self._waiting.pop(rid)
+        if mine != prompt:
+            raise ValueError(f"request {rid} differs between ranks: on a "
+                             f"mesh every rank submits the same requests in "
+                             f"the same order")
+        return fut
 
     def _sleep_for(self, iid):
         if self._delay_fn is None:
@@ -527,61 +879,64 @@ class GenerationSession:
         except TypeError:
             return 0.0
 
-    def _admit(self):
-        """Fill free (member, slot) pairs from the waiting queue; rebuild
-        parity columns whose occupancy changed."""
-        admitted = False
-        while True:
-            free = [(i, s) for i in range(self.k)
-                    for s in range(self.n_slots)
-                    if self._slots[i][s] is None]
-            if not free:
-                break
-            try:
-                rid, prompt, max_new, fut = self._waiting.get_nowait()
-            except queue.Empty:
-                break
-            i, s = free[0]
-            stream = _Stream(rid, prompt, max_new, fut)
+    def _admit(self, plan):
+        """Prefill the decided admissions into their (member, slot) pairs,
+        emit each first token, and rebuild the parity columns whose
+        occupancy changed."""
+        if plan:
+            self._prefill_admitted(plan)
+        for s in sorted(self._dirty):
+            self._rebuild_parity(s)
+        self._dirty.clear()
+
+    def _prefill_admitted(self, plan):
+        jobs = []
+        for rid, prompt, max_new, i, s, t_admit in plan:
+            stream = _Stream(rid, prompt, max_new, self._take(rid, prompt),
+                             t_admit)
             self._slots[i][s] = stream
             if self._t0 is None:
                 with self._lock:
-                    self._t0 = time.monotonic()
+                    self._t0 = t_admit
+            inst = self._members[i]
 
-            toks = torch.tensor([prompt], dtype=torch.int32,
-                                device=self.dev)              # [1, P]
-            ex = self._members[i]
-
-            def job(toks=toks, i=i, s=s, stream=stream):
-                iid = self._member_iids[i]
-                d = self._sleep_for(iid)
+            def job(prompt=prompt, inst=inst, s=s):
+                d = self._sleep_for(inst.iid)
                 if d:
                     time.sleep(d)
-                logits, one = self._prefill(self.params, tokens=toks,
+                toks = torch.tensor([prompt], dtype=torch.int32,
+                                    device=self.dev)          # [1, P]
+                logits, one = self._prefill(inst.params, tokens=toks,
                                             cache_len=self.max_seq)
-                _write_slot(self._caches[i], one, s)
+                _write_slot(inst.pool, one, s)
                 return to_host(logits[0, -1])
-
-            evt, out = ex.submit(job)
-            evt.wait()
-            if "error" in out:
-                raise out["error"]
-            # first token comes from the prefill logits (admission path,
-            # uncoded); decode steps from here on are coded
-            tok = int(np.argmax(out["result"]))
-            now = time.monotonic()
+            jobs.append(inst.ex.submit(job))
+        # first tokens come from the prefill logits (admission path,
+        # uncoded); decode steps from here on are coded
+        rows = [_result(job) for job in jobs]
+        firsts, now = self._share(
+            ([int(np.argmax(row)) for row in rows], time.monotonic())
+            if self._decides else None)
+        for (_, _, _, i, s, _), tok in zip(plan, firsts):
+            stream = self._slots[i][s]
             stream.future._times.append(stream.t_admit)
             stream.future._emit(tok, now, reconstructed=False)
             stream.next_token = tok
-            self._record(now - stream.t_admit, reconstructed=False)
+            self._record(now - stream.t_admit, now, reconstructed=False)
             self._dirty.add(s)
-            admitted = True
             if stream.max_new <= 1:
                 self._finish(i, s)
-        if admitted or self._dirty:
-            for s in sorted(self._dirty):
-                self._rebuild_parity(s)
-            self._dirty.clear()
+
+    def _encode(self, j, embs):
+        """Parity j's input: ``sum_i C[j, i] * embs[i]`` in fp32 (``embs[i]``
+        None for an empty member), in the embeddings' dtype; python
+        coefficients, so the sum runs on DTensors as it does on tensors."""
+        enc = None
+        for i, e in enumerate(embs):
+            if e is not None:
+                term = float(self.coeffs[j, i]) * e.float()
+                enc = term if enc is None else enc + term
+        return enc.to(next(e.dtype for e in embs if e is not None))
 
     def _rebuild_parity(self, s):
         """Re-prefill parity slot column s from the encoded histories of its
@@ -591,6 +946,7 @@ class GenerationSession:
         right-alignment matches the newest suffix, which is exact for
         position-independent substrates and the trained-parity
         approximation otherwise (DESIGN.md §13)."""
+        from repro_torch.models.layers import pad_seq
         hists = []
         for i in range(self.k):
             st = self._slots[i][s]
@@ -600,35 +956,20 @@ class GenerationSession:
             for j in range(self.r):
                 self._ppos[j, s] = 0
             return
-        # encoded prompt embeddings [1, L, D]
-        embs = []
-        for h in hists:
-            if h:
-                e = self._embed(self.params, torch.tensor(
-                    [h], dtype=torch.int32, device=self.dev))
-            else:
-                e = None
-            embs.append(e)
-        D = next(e.shape[-1] for e in embs if e is not None)
-        dt = next(e.dtype for e in embs if e is not None)
-        for j in range(self.r):
-            enc = torch.zeros((1, L, D), dtype=torch.float32,
-                              device=self.dev)
-            for i, e in enumerate(embs):
-                if e is not None:
-                    enc[:, L - e.shape[1]:] += self.coeffs[j, i] * e.float()
-            enc = enc.to(dt)
-
-            def job(enc=enc, j=j, s=s):
-                _, one = self._prefill(self.parity_params, embeds=enc,
+        jobs = []
+        for j, inst in enumerate(self._parities):
+            def job(j=j, inst=inst):
+                # encoded prompt embeddings [1, L, D], left-padded
+                embs = [pad_seq(self._embed(inst.embed_params, torch.tensor(
+                    [h], dtype=torch.int32, device=self.dev)), L - len(h), 0)
+                    if h else None for h in hists]
+                _, one = self._prefill(inst.params,
+                                       embeds=self._encode(j, embs),
                                        cache_len=self.max_seq)
-                _write_slot(self._pcaches[j], one, s)
-                return None
-
-            evt, out = self._parities[j].submit(job)
-            evt.wait()
-            if "error" in out:
-                raise out["error"]
+                _write_slot(inst.pool, one, s)
+            jobs.append(inst.ex.submit(job))
+        for j, job in enumerate(jobs):
+            _result(job)
             self._ppos[j, s] = L
 
     def _step(self, active):
@@ -643,73 +984,95 @@ class GenerationSession:
             pos[i, s] = st.pos
             occ[i, s] = True
 
-        # member jobs: full fixed-shape batch, per-slot positions
+        # member jobs: full fixed-shape batch, per-slot positions (each job
+        # moves its own inputs to the card, on its instance's stream)
         member_out = []
-        for i in range(k):
-            ti = torch.as_tensor(tok[i], device=self.dev)
-            pi = torch.as_tensor(pos[i], device=self.dev)
-
-            def job(i=i, ti=ti, pi=pi):
-                d = self._sleep_for(self._member_iids[i])
+        for i, inst in enumerate(self._members):
+            def job(inst=inst, ti=tok[i], pi=pos[i]):
+                d = self._sleep_for(inst.iid)
                 if d:
                     time.sleep(d)
-                logits, new = self._decode(self.params, self._caches[i],
-                                           pi, token=ti)
-                self._caches[i] = new
+                logits, inst.pool = self._decode(
+                    inst.params, inst.pool,
+                    torch.as_tensor(pi, device=self.dev),
+                    token=torch.as_tensor(ti, device=self.dev))
                 return to_host(logits)             # [n_slots, 1, V]
 
-            member_out.append(self._members[i].submit(job))
+            member_out.append(inst.ex.submit(job))
 
         # parity jobs: encoded input embedding, own cache column positions.
         # Unoccupied (member, slot) cells carry token 0 only for shape — mask
         # their embeddings to zero so they contribute nothing to the code.
-        embs = self._embed(self.params, torch.as_tensor(
-            tok.reshape(k * n_slots, 1), device=self.dev))
-        embs = embs.reshape(k, n_slots, 1, -1)
-        embs = embs * torch.as_tensor(occ, device=self.dev)[:, :, None, None]
         parity_out = []
         active_slots = {s for _, s in active}
-        for j in range(self.r):
-            enc_j = torch.einsum("i,ind->nd", self.coeffs[j],
-                                 embs[:, :, 0].float()).to(embs.dtype)[:, None]
-            ppos_j = torch.as_tensor(self._ppos[j].astype(np.int32),
-                                     device=self.dev)
-
-            def pjob(j=j, enc_j=enc_j, ppos_j=ppos_j):
-                d = self._sleep_for(self._parity_iids[j])
+        for j, inst in enumerate(self._parities):
+            def pjob(j=j, inst=inst, ppos_j=self._ppos[j].astype(np.int32)):
+                d = self._sleep_for(inst.iid)
                 if d:
                     time.sleep(d)
-                logits, new = self._decode(self.parity_params,
-                                           self._pcaches[j], ppos_j,
-                                           embed=enc_j)
-                self._pcaches[j] = new
+                toks = torch.as_tensor(tok.reshape(k * n_slots, 1),
+                                       device=self.dev)
+                mask = torch.as_tensor(occ, device=self.dev)
+                embs = self._embed(inst.embed_params, toks).reshape(
+                    k, n_slots, 1, -1) * mask[:, :, None, None]
+                logits, inst.pool = self._decode(
+                    inst.params, inst.pool,
+                    torch.as_tensor(ppos_j, device=self.dev),
+                    embed=self._encode(j, embs.unbind(0)))
                 return to_host(logits)
-            parity_out.append(self._parities[j].submit(pjob))
+            parity_out.append(inst.ex.submit(pjob))
             self._ppos[j][list(active_slots)] += 1
 
-        # collect with the per-step straggle deadline
+        outcome = self._share(self._collect(active, member_out, parity_out,
+                                            occ) if self._decides else None)
+        tokens, reconstructed, used, now = outcome
+        if not self._decides:
+            # the jobs whose results the decider used; their errors here
+            for i in used[0]:
+                _result(member_out[i])
+            for j in used[1]:
+                _result(parity_out[j])
+
+        # emit canonical tokens; feed them back regardless of which side
+        # (member or parity decode) produced the logits
+        for (i, s), tok_out in zip(active, tokens):
+            st = self._slots[i][s]
+            recon = i in reconstructed
+            gap = now - st.future._times[-1]
+            st.future._emit(tok_out, now, reconstructed=recon)
+            self._record(gap, now, reconstructed=recon)
+            st.next_token = tok_out
+            st.pos += 1
+            if len(st.future.tokens_so_far) >= st.max_new or \
+                    st.pos >= self.max_seq - 1:
+                self._finish(i, s)
+
+    def _collect(self, active, member_out, parity_out, occ):
+        """The decider's outcome of a step: the members' logits within the
+        per-step straggle deadline, a missing member's rebuilt from the
+        parity logits, and from them (tokens by active (member, slot) in
+        order, the rebuilt members, (the members and parities whose
+        results were used), the time)."""
+        k, n_slots = self.k, self.n_slots
         deadline = time.monotonic() + self.spec.straggle_ms / 1e3
         logits = [None] * k
         missing = []
         for i, (evt, out) in enumerate(member_out):
             if evt.wait(max(0.0, deadline - time.monotonic())):
-                if "error" in out:
-                    raise out["error"]
-                logits[i] = out["result"]
+                logits[i] = _result((evt, out))
             else:
                 missing.append(i)
 
-        reconstructed = set()
+        reconstructed, used_p = set(), []
         if missing:
             pavail = np.zeros((self.r,), bool)
             plogits = [None] * self.r
             for j, (evt, out) in enumerate(parity_out):
                 if evt.wait(max(0.0, deadline - time.monotonic())):
-                    if "error" in out:
-                        raise out["error"]
-                    plogits[j] = out["result"]
+                    plogits[j] = _result((evt, out))
                     pavail[j] = True
             if len(missing) <= int(pavail.sum()):
+                used_p = [j for j in range(self.r) if pavail[j]]
                 V = next(x for x in logits if x is not None).shape[-1] \
                     if any(x is not None for x in logits) else \
                     plogits[int(np.argmax(pavail))].shape[-1]
@@ -736,36 +1099,20 @@ class GenerationSession:
             else:
                 # irrecoverable this step: block for the stragglers
                 for i in missing:
-                    evt, out = member_out[i]
-                    evt.wait()
-                    if "error" in out:
-                        raise out["error"]
-                    logits[i] = out["result"]
+                    logits[i] = _result(member_out[i])
+        tokens = [int(np.argmax(logits[i][s, 0])) for i, s in active]
+        used_m = [i for i in range(k) if i not in reconstructed]
+        return tokens, sorted(reconstructed), (used_m, used_p), \
+            time.monotonic()
 
-        # emit canonical tokens; feed them back regardless of which side
-        # (member or parity decode) produced the logits
-        now = time.monotonic()
-        for i, s in active:
-            st = self._slots[i][s]
-            recon = i in reconstructed
-            tok_out = int(np.argmax(logits[i][s, 0]))
-            gap = now - st.future._times[-1]
-            st.future._emit(tok_out, now, reconstructed=recon)
-            self._record(gap, reconstructed=recon)
-            st.next_token = tok_out
-            st.pos += 1
-            if len(st.future.tokens_so_far) >= st.max_new or \
-                    st.pos >= self.max_seq - 1:
-                self._finish(i, s)
-
-    def _record(self, gap_s, *, reconstructed):
+    def _record(self, gap_s, now, *, reconstructed):
         with self._lock:
             self._gaps_ms.append(1e3 * gap_s)
             key = "parity" if reconstructed else "model"
             self._completed_by[key] = self._completed_by.get(key, 0) + 1
             if reconstructed:
                 self._recon_steps += 1
-            self._t1 = time.monotonic()
+            self._t1 = now
 
     def _finish(self, i, s):
         st = self._slots[i][s]

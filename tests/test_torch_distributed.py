@@ -440,12 +440,118 @@ def test_deploy_lm_on_a_one_rank_mesh_serves_the_same_tokens(one_rank_mesh):
     assert serve(one_rank_mesh) == serve(None)
 
 
-def test_generation_spec_refuses_a_sharded_mesh():
+def test_kernel_route_on_a_one_rank_mesh_is_bit_equal(one_rank_mesh):
+    """B7 and B8's route on DTensors (``layers._local_heads`` under the
+    rules, ``layers._decode_kernel``) hands the ops each rank's plain local
+    shard: on a one-rank mesh, the whole tensors, so the plain versions
+    give the plain route's bits; without the rules the prefill route hands
+    the op its DTensors, and the op refuses them."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.models import layers as L
+    mesh = one_rank_mesh
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 24, H, 16), generator=g) for H in (4, 2, 2))
+    kc, vc = (torch.randn((2, 32, 2, 16), generator=g) for _ in range(2))
+    pos = torch.tensor([5, 31], dtype=torch.int32)
+
+    def dt(t):
+        return DTensor.from_local(t, mesh, [Replicate(), Replicate()])
+
+    def flash(q, k, v):
+        return ops.flash_attention_op(q, k, v, causal=True)
+    with torch.no_grad():
+        with tlogical.logical_rules(*tlogical.rules_for_mesh(mesh), mesh):
+            got = (L._local_heads(flash, dt(q), dt(k), dt(v)),
+                   L._decode_kernel(dt(q[:, 0]), dt(kc), dt(vc), pos),
+                   L._decode_kernel(dt(q[:, 0]), dt(kc), dt(vc), 7))
+        assert torch.equal(got[0].to_local(), flash(q, k, v))
+        assert torch.equal(got[1].to_local(),
+                           ops.decode_attention_op(q[:, 0], kc, vc, pos))
+        assert torch.equal(got[2].to_local(),
+                           ops.decode_attention_op(q[:, 0], kc, vc, 7))
+        with pytest.raises(RuntimeError, match="takes no DTensor"):
+            L._local_heads(flash, dt(q), dt(k), dt(v))
+
+
+def test_implicit_replication_holds_across_overlapping_threads():
+    """``logical.implicit_replication`` from eight threads that enter and
+    leave it in overlapping turns (a short switch interval): every holder
+    sees the switch on while it holds it, and it is back off once the last
+    one leaves, on both torch's per-thread and global flag."""
+    import sys
+    import threading
+    from torch.distributed.tensor import DTensor
+    dispatcher = DTensor._op_dispatcher
+    seen, errors = [], []
+    start = threading.Barrier(8)
+
+    def holder():
+        try:
+            start.wait(timeout=30)
+            for _ in range(200):
+                with tlogical.implicit_replication():
+                    seen.append(dispatcher._allow_implicit_replication)
+        except Exception as e:             # reported below
+            errors.append(e)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=holder) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert len(seen) == 8 * 200 and all(seen)
+    assert dispatcher._allow_implicit_replication is False
+
+
+def test_kernel_route_refuses_a_sequence_sharded_cache(one_rank_mesh):
+    """A cache sharded along its sequence (``ShardingRules.cache_specs``,
+    the launch steps' layout) raises on the kernel route, naming ROADMAP.md
+    B.5: B8 returns no log-sum-exp to combine the shards with."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.models import layers as L
+    mesh = one_rank_mesh
+    cache = DTensor.from_local(torch.zeros((2, 32, 2, 16)), mesh,
+                               [Replicate(), Shard(1)])
+    with torch.no_grad(), pytest.raises(ValueError, match="B.5"):
+        L._decode_kernel(DTensor.from_local(torch.zeros((2, 4, 16)), mesh,
+                                            [Replicate(), Replicate()]),
+                         cache, cache, 3)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-medium", None])
+def test_generation_spec_refuses_a_sharded_mesh(arch):
+    """A (2, 2) mesh serves the decoder-only plans
+    (``tests/test_torch_sharded_serving.py``); a cross-attending plan, or a
+    substrate override (``arch`` None: the tests' linear stub), raises
+    ``ValueError`` naming ROADMAP.md B.5, on the spec, before any serving
+    thread starts."""
     from repro_torch.launch.mesh import fake_world, make_test_mesh
     with fake_world(4):
         mesh = make_test_mesh((2, 2))
-        with pytest.raises(ValueError, match="B.4"):
-            GenerationSpec(mesh=mesh, device="cpu")
+        GenerationSpec(cfg=tbase.get_config("qwen2-0.5b", reduced=True),
+                       mesh=mesh, device="cpu")
+        kw = (dict(cfg=tbase.get_config(arch, reduced=True)) if arch else
+              dict(prefill_fn=lambda *a, **k: None))
+        with pytest.raises(ValueError, match="B.5"):
+            GenerationSpec(mesh=mesh, device="cpu", **kw)
+
+
+def test_generation_spec_refuses_several_cards():
+    """A mesh of several cards (NCCL) raises ``ValueError`` naming
+    ROADMAP.md C.3, for a plan that a CPU mesh serves: on four cards the
+    session has hung before its first token."""
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+    with fake_world(4):
+        mesh = make_test_mesh((2, 2), device_type="cuda")
+        with pytest.raises(ValueError, match="C.3"):
+            GenerationSpec(cfg=tbase.get_config("qwen2-0.5b", reduced=True),
+                           mesh=mesh, device="cpu")
 
 
 def _op_calls(x, kv):

@@ -800,3 +800,58 @@ def test_reduced_cross_models_on_the_card_match_the_cpu(cuda, arch):
     assert cnt["decode_attention"].value == before[1] + 2 * n_attn
     for a, b in zip(out["cuda"], out["cpu"]):
         _close(a.cpu(), b, 2e-4, 2e-4)
+
+
+# --------------------------------------------------------------------------
+# the kernel route on DTensors (a one-rank NCCL mesh): B7 and B8 through the
+# attention layers' local_map, at qwen2-0.5b's heads (14 over 2, head_dim
+# 64) and deepseek-moe-16b's (16 over 16, head_dim 128)
+# --------------------------------------------------------------------------
+MESH_HEADS = [(14, 2, 64), (16, 16, 128)]
+
+
+@pytest.mark.parametrize("H,KV,hd", MESH_HEADS)
+def test_kernel_route_on_dtensors_is_bit_equal_on_the_card(cuda, H, KV, hd):
+    """B7 (``layers._local_heads`` under the launcher's rules, as
+    ``self_attention_fwd`` calls it) and B8 (``layers._decode_kernel`` on a
+    cache at the serving pool's layout) on DTensors of a (1, 1) mesh give
+    the plain-tensor route's bits; each call is one launch of its kernel,
+    on the tensor-core route."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.distributed import logical
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch.mesh import card_world, make_test_mesh
+    from repro_torch.models import layers as L
+    q = torch.randn((1, 256, H, hd), generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn((1, 256, KV, hd), generator=cuda,
+                        device="cuda").bfloat16() for _ in range(2))
+    qd = torch.randn((4, H, hd), generator=cuda, device="cuda").bfloat16()
+    kc, vc = (torch.randn((4, 1280, KV, hd), generator=cuda,
+                          device="cuda").bfloat16() for _ in range(2))
+    pos = torch.tensor([300, 1279, 517, 0], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        plain = (ops.flash_attention_op(q, k, v, causal=True),
+                 ops.decode_attention_op(qd, kc, vc, pos))
+    cnt = ops.counters()
+    with card_world():
+        mesh = make_test_mesh((1, 1), device_type="cuda")
+
+        def dt(t):
+            return DTensor.from_local(t, mesh, [Replicate(), Replicate()])
+        before = (cnt["flash_attention"].value, cnt["decode_attention"].value,
+                  kf.route_launches["wgmma"].value,
+                  kd.route_launches["mma"].value)
+        with logical.logical_rules(*logical.rules_for_mesh(mesh), mesh), \
+                torch.no_grad():
+            flash = L._local_heads(lambda q, k, v: ops.flash_attention_op(
+                q, k, v, causal=True), dt(q), dt(k), dt(v))
+            dec = L._decode_kernel(dt(qd), dt(kc), dt(vc), pos)
+        torch.cuda.synchronize()
+        after = (cnt["flash_attention"].value, cnt["decode_attention"].value,
+                 kf.route_launches["wgmma"].value,
+                 kd.route_launches["mma"].value)
+        assert isinstance(flash, DTensor) and isinstance(dec, DTensor)
+        assert torch.equal(flash.to_local(), plain[0])
+        assert torch.equal(dec.to_local(), plain[1])
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)

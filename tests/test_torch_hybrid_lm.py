@@ -386,7 +386,7 @@ def test_warmup_leaves_the_served_pools_untouched():
                           max_seq_len=16, batching=BatchingPolicy(max_size=2))
     sess = GenerationSession(spec)
     try:
-        pools = sess._caches + sess._pcaches
+        pools = [inst.pool for inst in sess._members + sess._parities]
         assert any("ssm" in layer for layer in pools[0])
         for leaf in tree_leaves(pools):
             assert not leaf.any()
