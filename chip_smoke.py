@@ -95,9 +95,9 @@ Phases, in order; any failure exits non-zero:
                and launches by kernel printed.
 14. sharded  — phase 8's qwen2-0.5b served by ``deploy_lm`` on a (1, 1)
                mesh over one NCCL rank with its parameters DTensors, so
-               the SPMD session runs as on a larger mesh (an instance mesh
-               per executor, the serving rules on every thread, DTensor
-               pools, B7 and B8 through the attention layers' local_map):
+               the SPMD session runs as on a larger mesh (one device thread
+               for every instance under the serving rules, DTensor pools,
+               B7 and B8 through the attention layers' local_map):
                phase 8's 8 requests at 4 new tokens, clean (tokens equal
                to phase 8's loop up to near-ties) and with member 0 late
                on every decode step (member 1 equal to the loop), every
@@ -1618,11 +1618,11 @@ def prefill_ms(cfg, params, prompt, seq=LM_SEQ, **context):
                                      **context))
 
 
-def device_profile(fn):
-    """Run ``fn`` under torch.profiler: (wall s, device-busy s, device
-    operations launched), the last two summed over the device-side events
-    (kernels, copies, fills; host ops also carry the device time of what
-    they launch, so they are left out)."""
+def device_events(fn):
+    """Run ``fn`` under torch.profiler: (wall s, [(name, device-busy s,
+    count)] of its device-side events: kernels, copies, fills; host ops
+    also carry the device time of what they launch, so they are left
+    out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1632,12 +1632,16 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, n = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            busy += ev.self_device_time_total / 1e6
-            n += ev.count
-    return wall, busy, n
+    return wall, [(ev.key, ev.self_device_time_total / 1e6, ev.count)
+                  for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA]
+
+
+def device_profile(fn):
+    """Run ``fn`` under torch.profiler: (wall s, device-busy s, device
+    operations launched), the last two summed over ``device_events``."""
+    wall, events = device_events(fn)
+    return wall, sum(e[1] for e in events), sum(e[2] for e in events)
 
 
 def check_straggler_serve(label, futs, stats, loops, tag="lm",
@@ -3089,18 +3093,19 @@ def phase13():
 # sharded LM serving (path 9): phase 8's qwen2-0.5b (seed 0, the same
 # weights) served by deploy_lm with GenerationSpec(mesh=...) on a (1, 1)
 # ("data", "model") mesh over one NCCL rank, its parameters DTensors, so the
-# session runs as on a larger mesh: an instance mesh with process groups of
-# its own per executor, the logical rules on every serving thread, DTensor
-# pools at the serving layout, and B7 and B8 through the attention layers'
-# local_map on the rank's shard of the batch and the KV heads.  A mesh of
-# one device would keep plain tensors (ShardingRules.distribute), so the
-# parameters are made DTensors here.  Two ranks sharing the card are not
-# run: NCCL refuses two ranks on one card, and gloo's all-gather of CUDA
-# tensors (full_tensor) has killed its process with SIGSEGV on torch 2.11
-# (PERF.md section 7).
+# session runs as on a larger mesh: one device thread running every
+# instance's device work in the decided order under the serving rules,
+# answers of a late instance held back, DTensor pools at the serving
+# layout, and B7 and B8 through the attention layers' local_map on the
+# rank's shard of the batch and the KV heads.  A mesh of one device would
+# keep plain tensors (ShardingRules.distribute), so the parameters are made
+# DTensors here.  Two ranks sharing the card are not run: NCCL refuses two
+# ranks on one card, and gloo's all-gather of CUDA tensors (full_tensor)
+# has killed its process with SIGSEGV on torch 2.11 (PERF.md section 7).
+# Four cards are served by tools/sharded_serve.py (--chips 4).
 # tokens per request on this path: a quarter of phase 8's (a depth cut:
 # every op of a step goes through DTensor's dispatcher, ~0.07 ms of host
-# time each on torch 2.11, and three instances share the interpreter)
+# time each on torch 2.11, and one thread runs the three instances' steps)
 SHARDED_NEW = LM_NEW // 4
 
 
@@ -3130,9 +3135,63 @@ def sharded_step(cfg, params, mesh, pos):
     return step
 
 
-def sharded_serves(cfg, params, mesh, prompts, loops, served=None):
-    """deploy_lm on ``mesh``, SHARDED_NEW tokens per request: a clean serve whose tokens equal the loop's up to
-    near-ties (and, where ``served`` holds phase 8's tokens, how many
+def step_positions(prompts):
+    """The per-row positions of the decode step measured on a mesh: the
+    first LM_SLOTS prompts half way through phase 8's new tokens."""
+    return [len(p) + LM_NEW // 2 for p in prompts[:LM_SLOTS]]
+
+
+def mesh_step_costs(cfg, params, dparams, mesh, pos):
+    """The decode step on ``mesh`` (``sharded_step`` over ``dparams``)
+    beside the plain step over ``params`` in the same call: host ms
+    (synchronized, mean of 20 after 3), device ms and device operations per
+    step (torch.profiler over 3 steps)."""
+    step = sharded_step(cfg, dparams, mesh, pos)
+    mesh_ms = host_ms(step, iters=20, warmup=3, grad_off=torch.no_grad)
+    _, events = device_events(lambda: [step() for _ in range(3)])
+    nccl = [e for e in events if "nccl" in e[0].lower()]
+    mesh_busy, mesh_ops = (sum(e[i] for e in events) for i in (1, 2))
+    nccl_busy, nccl_ops = (sum(e[i] for e in nccl) for i in (1, 2))
+    plain_ms = decode_step_ms(cfg, params, pos)
+    cache = T.init_cache(cfg, LM_SLOTS, LM_SEQ, device=DEV)
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEV)
+
+    def plain_steps():
+        with torch.inference_mode():
+            for _ in range(3):
+                T.decode_step(cfg, params, cache, torch.tensor(
+                    pos, device=DEV), token=tok)
+    _, plain_busy, plain_ops = device_profile(plain_steps)
+    return {"decode_step_ms": mesh_ms,
+            "decode_step_device_ms": mesh_busy / 3 * 1e3,
+            "decode_step_device_ops": mesh_ops / 3,
+            "decode_step_nccl_device_ms": nccl_busy / 3 * 1e3,
+            "decode_step_nccl_ops": nccl_ops / 3, "plain_step_ms": plain_ms,
+            "plain_step_device_ms": plain_busy / 3 * 1e3,
+            "plain_step_device_ops": plain_ops / 3}
+
+
+def log_step_costs(mesh_name, pos, costs, extra=""):
+    log(f"[sharded] decode step batch {LM_SLOTS} at pos {pos} on the "
+        f"{mesh_name} mesh: {costs['decode_step_ms']:.3f} ms host "
+        f"(synchronized, mean of 20), {costs['decode_step_device_ms']:.3f} "
+        f"ms device, {costs['decode_step_device_ops']:.0f} device "
+        f"operations (of them NCCL kernels "
+        f"{costs['decode_step_nccl_device_ms']:.3f} ms, which include their "
+        f"wait for the other ranks, and "
+        f"{costs['decode_step_nccl_ops']:.0f} operations); the plain step "
+        f"in this call "
+        f"{costs['plain_step_ms']:.3f} ms host, "
+        f"{costs['plain_step_device_ms']:.3f} ms device, "
+        f"{costs['plain_step_device_ops']:.0f} operations{extra}; "
+        f"{smi_line()}")
+
+
+def sharded_serves(cfg, params, mesh, prompts, loops, served=None,
+                   any_rank=False):
+    """deploy_lm on ``mesh``, SHARDED_NEW tokens per request: a clean serve
+    whose tokens equal the loop's up to near-ties (``check_tokens``, with
+    ``any_rank``; and, where ``served`` holds phase 8's tokens, how many
     streams equal them), then member 0 late on every decode step (its
     admissions' prefills on time), member 1's streams equal to the loop.
     Returns a summary."""
@@ -3141,7 +3200,8 @@ def sharded_serves(cfg, params, mesh, prompts, loops, served=None):
     log_serve("no straggler", clean, setup_s, serve_s, 10_000.0,
               tag="sharded")
     ties = {f.rid: check_tokens(f"sharded rid {f.rid}", f.result(),
-                                loops[f.rid], new=SHARDED_NEW) for f in futs}
+                                loops[f.rid], any_rank, SHARDED_NEW)
+            for f in futs}
     if clean.reconstructed_steps or clean.n != LM_REQUESTS * SHARDED_NEW:
         raise AssertionError(f"sharded clean run: {clean}")
     same = sum(f.result() == served[f.rid][:SHARDED_NEW] for f in futs) \
@@ -3171,7 +3231,8 @@ def sharded_serves(cfg, params, mesh, prompts, loops, served=None):
     log_serve(f"member 0 delayed {delay_s * 1e3:.0f} ms per decode step",
               strag, setup_s, serve_s, straggle_ms, tag="sharded")
     agree = check_straggler_serve("straggler", futs, strag, loops,
-                                  tag="sharded", new=SHARDED_NEW)
+                                  tag="sharded", any_rank=any_rank,
+                                  new=SHARDED_NEW)
     return {"clean": {"completed_by": clean.completed_by, "n": clean.n,
                       "tokens_per_s": clean.tokens_per_s,
                       "p50_ms": clean.inter_token_p50_ms,
@@ -3206,22 +3267,9 @@ def phase14(ref, lm=None):
                                 ref.get("served"))
         # the decode step alone on the mesh, beside the plain step in this
         # call (uncounted)
-        pos = [len(p) + LM_NEW // 2 for p in prompts[:LM_SLOTS]]
+        pos = step_positions(prompts)
         with uncounted():
-            step = sharded_step(cfg, dparams, mesh, pos)
-            mesh_ms = host_ms(step, iters=20, warmup=3, grad_off=torch.no_grad)
-            _, mesh_busy, mesh_ops = device_profile(
-                lambda: [step() for _ in range(3)])
-            plain_ms = decode_step_ms(cfg, params, pos)
-            cache = T.init_cache(cfg, LM_SLOTS, LM_SEQ, device=DEV)
-            tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=DEV)
-
-            def plain_steps():
-                with torch.inference_mode():
-                    for _ in range(3):
-                        T.decode_step(cfg, params, cache, torch.tensor(
-                            pos, device=DEV), token=tok)
-            _, plain_busy, plain_ops = device_profile(plain_steps)
+            costs = mesh_step_costs(cfg, params, dparams, mesh, pos)
     path = {name: v - uncounted.n[name] for name, v in counts().items()}
     del params, dparams
     routes = {name: c.value for name, c in k_flash.route_launches.items()}
@@ -3237,24 +3285,15 @@ def phase14(ref, lm=None):
         f"routes (measurements included: B7 {routes}, B8 {droutes})")
     p8 = (f"; phase 8's plain step {lm['decode_step_ms']:.3f} ms host, "
           f"{lm['decode_step_device_ms']:.3f} ms device" if lm else "")
-    log(f"[sharded] decode step batch {LM_SLOTS} at pos {pos} on the mesh: "
-        f"{mesh_ms:.3f} ms host (synchronized, mean of 20), "
-        f"{mesh_busy / 3 * 1e3:.3f} ms device, {mesh_ops / 3:.0f} device "
-        f"operations; the plain step in this call {plain_ms:.3f} ms host, "
-        f"{plain_busy / 3 * 1e3:.3f} ms device, {plain_ops / 3:.0f} "
-        f"operations{p8}; {smi_line()}")
+    log_step_costs("(1, 1)", pos, costs, p8)
     log(f"[sharded] main-path launches {path} (measurement launches left "
         f"out: {dict(uncounted.n)})")
     missing = [name for name in PATH9 if path[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the sharded "
                              f"serving path: {missing}")
-    return path, dict(
-        mesh=[1, 1], backend="nccl", **served, decode_step_ms=mesh_ms,
-        decode_step_device_ms=mesh_busy / 3 * 1e3,
-        decode_step_device_ops=mesh_ops / 3, plain_step_ms=plain_ms,
-        plain_step_device_ms=plain_busy / 3 * 1e3,
-        flash_routes=routes, decode_routes=droutes)
+    return path, dict(mesh=[1, 1], backend="nccl", **served, **costs,
+                      flash_routes=routes, decode_routes=droutes)
 
 
 def sharded_only():

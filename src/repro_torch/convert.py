@@ -59,8 +59,9 @@ def as_tensor(x, device):
 def to_host(x):
     """A tensor (or array-like) as a host numpy array (bfloat16, which numpy
     has no type for, arrives as float32).  A DTensor is gathered whole first
-    (``full_tensor``), over its mesh's process groups: on a serving
-    instance, from that instance's own thread."""
+    (``full_tensor``), over its mesh's process groups: a collective, so in
+    a serving session on a mesh it runs on the rank's device thread, in
+    the order every rank issues its collectives."""
     if isinstance(x, DTensor):
         x = x.full_tensor()
     if isinstance(x, torch.Tensor):

@@ -49,10 +49,11 @@ The port keeps the reference's engine and differs where PyTorch does: the
 cache pools are written in place (``models/transformer.decode_step``
 writes key/value rows, SSM states and conv tails, admissions copy a prefill
 into their slot column), and every write to instance i's pool runs on
-instance i's executor, whose FIFO queue still serializes a straggler's late
-step before its next one — the cache-repair rule is unchanged.  A decode
-advances an SSM state, so each served pool sees exactly the decodes the
-reference keeps: one per coded step, and none from the warm-up.  Executors launch on PyTorch's current
+instance i's executor (on a mesh, the rank's device thread), whose FIFO
+queue still serializes a straggler's late step before its next one — the
+cache-repair rule is unchanged.  A decode advances an SSM state, so each
+served pool sees exactly the decodes the reference keeps: one per coded
+step, and none from the warm-up.  Executors launch on PyTorch's current
 stream; ``to_host`` on the logits is the sync point.  ``GenerationSpec``
 keeps the reference's ``mesh`` (``place_inference_params``) and gains
 ``device`` and ``hardware`` (the sim engine's roofline device).
@@ -60,14 +61,30 @@ keeps the reference's ``mesh`` (``place_inference_params``) and gains
 On a mesh the session is SPMD, where the reference drives every device
 from one process: every rank builds the same session and submits the same
 requests, the mesh's first rank decides every scheduler round and
-broadcasts it (``GenerationSession``), each instance's executor owns
-process groups of its own (``_instance_mesh``) and runs under that mesh's
-logical rules, and the pools are DTensors with the sequence whole on each
-rank (``place_cache_pool``), so B7 and B8 run on each rank's shard of the
-batch and the KV heads (``models.layers``).
+broadcasts it (``GenerationSession``), and one device thread per rank runs
+every instance's device work of a decided round, in one fixed order
+(admissions' prefills, parity rebuilds, members 0..k-1, parities 0..r-1),
+on one stream, under the mesh's logical rules and over the mesh's own
+process groups.  So every rank issues the collectives of every
+communicator in the same order, from one thread: no interleaving of
+several threads' collectives can deadlock the ranks.  The pools are
+DTensors with the sequence whole on each rank (``place_cache_pool``), so
+B7 and B8 run on each rank's shard of the batch and the KV heads
+(``models.layers``).
+
+"Late" on a mesh: every instance there shares every card, as in the
+reference's single GSPMD process, so an instance is not slower than
+another by itself.  A simulated straggle (``delay_fn``, a scenario's
+adapters) holds back the instance's answer until its job's start plus the
+delay: the job runs at once in its place in the order, and the decider
+reads the answer as late, as it would a job slept that long.  Sleeping in
+the device thread would hold every instance's collectives behind one
+instance's straggle.  The cache-repair rule holds as without a mesh: a
+late step has run before its instance's next one.
 """
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 import time
@@ -80,7 +97,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-from repro_torch.convert import resolve_device, to_host, tree_leaves, tree_map
+from repro_torch.convert import resolve_device, to_host, tree_leaves
 from repro_torch.distributed import logical
 from repro_torch.core.scheme import get_scheme
 from repro_torch.serving.api import (BatchingPolicy, DeploymentSpec, Trace,
@@ -116,13 +133,15 @@ class GenerationSpec:
     ``mesh``, a ``("data", "model")`` ``DeviceMesh``, puts the parameters
     on its inference layout (``place_inference_params``).  On a mesh of one
     device they stay plain tensors and the session serves as without a
-    mesh; on a larger mesh the session is SPMD (``GenerationSession``).
-    DTensor parameters on a mesh of one device also take the SPMD path:
-    that is a hook for checking the sharded path on one card
-    (``chip_smoke.py`` phase 14), not a way to deploy.  A plan or a mesh
-    that does not serve raises ``ValueError`` here, naming its
-    ``ROADMAP.md`` item (``_refusal``): several cards over NCCL (C.3), a
-    cross-attending plan or a substrate override (B.5).
+    mesh; on a larger mesh (CPU ranks over gloo, or cards over NCCL) the
+    session is SPMD (``GenerationSession``).  DTensor parameters on a mesh
+    of one device also take the SPMD path: that is a hook for checking the
+    sharded path on one card (``chip_smoke.py`` phase 14), not a way to
+    deploy.  A plan that does not serve on a mesh raises ``ValueError``
+    here, naming its ``ROADMAP.md`` item (``_refusal``): a cross-attending
+    plan or a substrate override (B.5), and on several cards over NCCL a
+    plan other than a dense one (C.4: only dense plans have been checked
+    there).
     """
 
     cfg: Any = None
@@ -268,33 +287,39 @@ class _Stream:
 
 
 class _Executor(threading.Thread):
-    """One model instance: a worker thread draining a FIFO job queue.
+    """A worker thread draining a FIFO job queue: one per model instance
+    without a mesh, one per rank on a mesh (the device thread, which runs
+    every instance's jobs).
 
     FIFO order IS the cache-repair rule: a straggling decode step finishes
-    (and updates this instance's cache) before the next step dequeues.  On
-    a mesh the thread runs under its instance's logical rules (``rules``,
-    thread-local) and each job under ``per_job`` (the shared implicit
-    replication); a job's error is also handed to ``on_error``."""
+    (and updates its instance's cache) before the instance's next step
+    dequeues.  A job's simulated straggle (``delay``, seconds) is slept in
+    the thread before the job runs; with ``hold`` (the device thread) the
+    job runs at once and its answer is held back until its start plus the
+    delay.  The device thread runs under the mesh's logical rules
+    (``rules``, thread-local) and on a stream of its own, and each job
+    under ``per_job`` (the shared implicit replication).  A job's error is
+    also handed to ``on_error``.  Every job is recorded in ``issued`` as
+    (instance, kind, round, delay s, thread id) before it runs."""
 
-    def __init__(self, name, dev, rules=None, per_job=nullcontext,
-                 on_error=None):
+    def __init__(self, name, dev, issued, rules=None, per_job=nullcontext,
+                 on_error=None, hold=False):
         super().__init__(name=name, daemon=True)
         self.jobs = queue.Queue()
         self.dev, self.rules, self.per_job = dev, rules, per_job
-        self.on_error = on_error
+        self.issued, self.on_error, self.hold = issued, on_error, hold
 
-    def submit(self, fn):
+    def submit(self, fn, label, delay=None):
+        """Queue ``fn`` under ``label`` (instance, kind, round); ``delay``
+        gives the job's straggle in seconds when it starts."""
         evt, out = threading.Event(), {}
-        self.jobs.put((fn, evt, out))
+        self.jobs.put((fn, evt, out, label, delay))
         return evt, out
 
     def run(self):
         if self.dev.type == "cuda":
             # the current device is per thread; the kernels launch on it
             torch.cuda.set_device(self.dev)
-        # on a mesh, a stream of its own: instances sharing the default
-        # stream would order one instance's collectives behind another's
-        # work, differently on each rank, and deadlock across ranks
         stream = torch.cuda.Stream(self.dev) if (
             self.rules and self.dev.type == "cuda") else None
         with (logical.logical_rules(*self.rules) if self.rules
@@ -304,15 +329,26 @@ class _Executor(threading.Thread):
                 job = self.jobs.get()
                 if job is _SHUTDOWN:
                     break
-                fn, evt, out = job
+                fn, evt, out, label, delay = job
+                t0, d = time.monotonic(), 0.0
                 try:
+                    d = delay() if delay is not None else 0.0
+                    self.issued.append((*label, d, threading.get_ident()))
+                    if d and not self.hold:
+                        time.sleep(d)
                     with self.per_job():
                         out["result"] = fn()
                 except Exception as e:    # surfaced at collection time
                     out["error"] = e
                     if self.on_error is not None:
                         self.on_error(e)
-                evt.set()
+                wait = t0 + d - time.monotonic() if self.hold else 0.0
+                if wait > 0:
+                    timer = threading.Timer(wait, evt.set)
+                    timer.daemon = True
+                    timer.start()
+                else:
+                    evt.set()
 
     def stop(self):
         self.jobs.put(_SHUTDOWN)
@@ -333,16 +369,16 @@ def _result(job):
 
 
 class _Instance:
-    """One of the k + r model instances: its executor, the parameters it
-    serves, the deployed parameters it embeds tokens with (a parity
-    instance encodes the members' embeddings), its cache pool, and, on a
-    mesh, the ``DeviceMesh`` whose process groups are its own."""
+    """One of the k + r model instances: its name, its executor, the
+    parameters it serves, the deployed parameters it embeds tokens with (a
+    parity instance encodes the members' embeddings) and its cache pool."""
 
-    __slots__ = ("ex", "params", "embed_params", "pool", "iid", "mesh")
+    __slots__ = ("name", "ex", "params", "embed_params", "pool", "iid")
 
-    def __init__(self, ex, params, embed_params, iid, mesh=None):
-        self.ex, self.params, self.embed_params = ex, params, embed_params
-        self.iid, self.mesh, self.pool = iid, mesh, None
+    def __init__(self, name, ex, params, embed_params, iid):
+        self.name, self.ex = name, ex
+        self.params, self.embed_params = params, embed_params
+        self.iid, self.pool = iid, None
 
 
 # --------------------------------------------------------------------------
@@ -417,28 +453,6 @@ def place_cache_pool(pool, mesh):
         x, mesh, placements(spec, mesh), src_data_rank=None), pool, specs)
 
 
-def _instance_mesh(mesh):
-    """A ``DeviceMesh`` over the ranks and axes of ``mesh`` whose process
-    groups are new ones (one per distinct row of ranks along an axis), so
-    that one instance's collectives never share a sequence with another's:
-    each executor thread issues its own in its own FIFO order.  Every rank
-    calls this in the same order.  Returns (mesh, its groups)."""
-    from torch.distributed.device_mesh import DeviceMesh
-    ranks, me = mesh.mesh, dist.get_rank()
-    made, groups = {}, []
-    for d in range(ranks.ndim):
-        mine = None
-        for row in ranks.movedim(d, -1).reshape(-1, ranks.shape[d]).tolist():
-            if tuple(row) not in made:
-                made[tuple(row)] = dist.new_group(row)
-            if me in row:
-                mine = made[tuple(row)]
-        groups.append(mine)
-    return DeviceMesh.from_group(
-        groups if ranks.ndim > 1 else groups[0], mesh.device_type,
-        mesh=ranks, mesh_dim_names=mesh.mesh_dim_names), list(made.values())
-
-
 def serving_rules(mesh):
     """The logical rules a serving thread enters on ``mesh`` (arguments of
     ``logical.logical_rules``): the launcher's, with the inference layout's
@@ -446,14 +460,6 @@ def serving_rules(mesh):
     lrules, sizes = logical.rules_for_mesh(mesh)
     lrules["fsdp_params"] = False
     return lrules, sizes, mesh
-
-
-def _rewrap(tree, mesh):
-    """A DTensor tree's local shards as DTensors on ``mesh`` (an instance
-    mesh over the same ranks): no storage is copied."""
-    return tree_map(lambda t: DTensor.from_local(
-        t.to_local(), mesh, t.placements, run_check=False, shape=t.shape,
-        stride=t.stride()) if isinstance(t, DTensor) else t, tree)
 
 
 def _write_slot(pool, one, s):
@@ -484,16 +490,20 @@ def _write_slot(pool, one, s):
             dst, src.to(dst.dtype), _replicated(hit, mesh)))
 
 
+# the plan families served on several cards over NCCL and held there to
+# one card's tokens (tools/sharded_serve.py); the others are checked on CPU
+# ranks over gloo and on one card only
+CARD_CHECKED_FAMILIES = ("dense",)
+
+
 def _refusal(spec):
     """Why ``spec`` may not serve on its mesh and the ``ROADMAP.md`` item
     that says so, or None.  A mesh serves the transformer substrate of the
     plans this port has held to the unsharded port and to the reference on
     a sharded mesh (``tests/test_torch_sharded_serving.py``), on CPU ranks
-    over gloo and on one card."""
+    over gloo and on one card; on several cards over NCCL, the families of
+    ``CARD_CHECKED_FAMILIES``."""
     cfg = spec.cfg
-    if spec.mesh.size() > 1 and spec.mesh.device_type == "cuda":
-        return ("on several cards over NCCL the session has hung before "
-                "its first token", "C.3")
     if spec.prefill_fn is not None:
         return ("a substrate override (prefill_fn, ...) is not mesh-aware",
                 "B.5")
@@ -502,6 +512,11 @@ def _refusal(spec):
     if cfg.enc_dec or cfg.cross_attn_every:
         return (f"{cfg.name} cross-attends, and the session hands its "
                 f"prefill no cross_embeds", "B.5")
+    if spec.mesh.device_type == "cuda" and spec.mesh.size() > 1 and \
+            cfg.family not in CARD_CHECKED_FAMILIES:
+        return (f"{cfg.name} ({cfg.family}) has not been held to one "
+                f"card's tokens on several cards; "
+                f"{', '.join(CARD_CHECKED_FAMILIES)} plans have", "C.4")
     return None
 
 
@@ -527,12 +542,17 @@ class GenerationSession:
     own clock, and ``stats()`` and every future agree on every rank.
     Every exchange also carries each rank's failure, if it has one (a job's
     error, or its scheduler's): then every rank's scheduler stops there and
-    ``wait_all`` raises it on every rank.  Four processes on a CPU (gloo)
-    mesh serve the reference's tokens; several cards over NCCL are refused
-    (``ROADMAP.md`` C.3).
+    ``wait_all`` raises it on every rank.  Each rank's device thread runs
+    the rounds' device work in the decided order (see the module
+    docstring), so every rank issues the same collectives in the same order
+    from one thread; ``issued`` records the jobs it ran (instance, kind,
+    round, delay s, thread id), the last ``ISSUED_KEPT``.  Without a mesh
+    (or on a mesh of one device with plain parameters) every instance has
+    an executor thread of its own, as in the reference.
     """
 
     engine = "threads"
+    ISSUED_KEPT = 4096
 
     def __init__(self, spec: GenerationSpec):
         self.spec = spec
@@ -562,14 +582,13 @@ class GenerationSession:
         self._prefill, self._decode, self._embed, self._init_cache = fns
 
         # the decider: the mesh's first rank, exchanging on a gloo group
-        self._groups, self._side, self._src = [], None, None
+        self._side, self._src = None, None
         self._failed = None              # this rank's first failure
         if spec.mesh is not None and spec.mesh.size() > 1:
             ranks = spec.mesh.mesh.flatten().tolist()
             self._src = ranks[0]
             self._side_ranks = sorted(ranks)  # the group's own rank order
             self._side = dist.new_group(ranks, backend="gloo")
-            self._groups.append(self._side)
         self._decides = self._src is None or dist.get_rank() == self._src
 
         # fault adapters: scenario delays compose with the user delay_fn
@@ -586,35 +605,36 @@ class GenerationSession:
                 time_scale=spec.scenario_time_scale, extra=delay_fn)
         self._delay_fn = delay_fn
 
-        # k members and r parity instances; on a mesh each with process
-        # groups of its own, its parameters rewrapped onto them
+        # k members and r parity instances: an executor thread each, or on
+        # a mesh the rank's one device thread for all of them
+        self.issued = collections.deque(maxlen=self.ISSUED_KEPT)
+        self._round = 0
+        device = None
+        if self._sharded:
+            device = _Executor("lm-device", self.dev, self.issued,
+                               serving_rules(spec.mesh),
+                               logical.implicit_replication, self._fail,
+                               hold=True)
         roles = [("member", i, params, instance_id("main", i))
                  for i in range(self.k)] + \
             [("parity", j, pparams, instance_id(f"parity{j}", 0))
              for j in range(self.r)]
         self._members, self._parities = [], []
         for role, n, p, iid in roles:
-            mesh = rules = None
-            ep = params
-            per_job = nullcontext
-            if self._sharded:
-                mesh, groups = _instance_mesh(spec.mesh)
-                self._groups += groups
-                p, ep = _rewrap(p, mesh), _rewrap(params, mesh)
-                rules = serving_rules(mesh)
-                per_job = logical.implicit_replication
-            inst = _Instance(_Executor(f"lm-{role}-{n}", self.dev, rules,
-                                       per_job, self._fail), p, ep, iid,
-                             mesh)
+            name = f"lm-{role}-{n}"
+            ex = device or _Executor(name, self.dev, self.issued)
+            inst = _Instance(name, ex, p, params, iid)
             (self._members if role == "member" else self._parities).append(
                 inst)
         self._instances = self._members + self._parities
+        self._executors = list(dict.fromkeys(
+            inst.ex for inst in self._instances))
         if self._sharded and self.dev.type == "cuda":
             # the parameters, placed on this thread's stream, before the
-            # instances' own streams read them
+            # device thread's own stream reads them
             torch.cuda.current_stream(self.dev).synchronize()
-        for inst in self._instances:
-            inst.ex.start()
+        for ex in self._executors:
+            ex.start()
 
         # one fixed-shape cache pool per instance (slots never reshape),
         # then the prefill and both decode paths warmed before any deadline
@@ -623,10 +643,11 @@ class GenerationSession:
         # no code survives.  The decodes write a scratch pool of the served
         # layout that is then dropped, as the reference drops its warm-up
         # caches: a decode advances an SSM state, so no served pool may see
-        # one.  On a mesh each instance warms on its own thread, where its
-        # process groups and stream are; without one, once, here.
+        # one.  On a mesh every instance warms on the device thread, in
+        # order; without one, once, here.
         if self._sharded:
-            for job in [inst.ex.submit(lambda inst=inst: self._warm(inst))
+            for job in [self._submit(inst, "warm",
+                                     lambda inst=inst: self._warm(inst))
                         for inst in self._instances]:
                 _result(job)
         else:
@@ -658,9 +679,16 @@ class GenerationSession:
 
     def _new_pool(self, inst):
         pool = self._init_cache(inst.params, self.n_slots, self.max_seq)
-        if inst.mesh is not None:
-            pool = place_cache_pool(pool, inst.mesh)
+        if self._sharded:
+            pool = place_cache_pool(pool, self.spec.mesh)
         return pool
+
+    def _submit(self, inst, kind, fn, delayed=False):
+        """Queue ``fn`` on ``inst``'s executor, labelled with this round;
+        ``delayed``: the job takes the instance's simulated straggle."""
+        return inst.ex.submit(
+            fn, (inst.name, kind, self._round),
+            (lambda: self._sleep_for(inst.iid)) if delayed else None)
 
     def _warm_once(self):
         tok0 = torch.zeros((self.n_slots, 1), dtype=torch.int32,
@@ -746,20 +774,21 @@ class GenerationSession:
             self._stopping = True
             self._lock.notify_all()
         self._scheduler.join(timeout=60.0)
-        for inst in self._instances:
-            inst.ex.stop()
-        # a straggler's late jobs run on; on a mesh they hold collectives
-        # that the other ranks' executors meet, so they are waited for
-        # before the groups go.  After a failure a job may wait for a rank
-        # that never comes; its groups are then left to their timeout.
-        wait_s = 300.0 if self._groups and self._error is None else 10.0
+        for ex in self._executors:
+            ex.stop()
+        # every issued job ends before the side group goes: on a mesh the
+        # device thread's jobs hold collectives that the other ranks meet.
+        # After a failure a job may wait for a rank that never comes; the
+        # group is then left to its timeout.
+        wait_s = 300.0 if self._side is not None and self._error is None \
+            else 10.0
         deadline = time.monotonic() + wait_s
-        for inst in self._instances:
-            inst.ex.join(timeout=max(0.0, deadline - time.monotonic()))
-        if not any(inst.ex.is_alive() for inst in self._instances):
-            for group in self._groups:
-                dist.destroy_process_group(group)
-            self._groups = []
+        for ex in self._executors:
+            ex.join(timeout=max(0.0, deadline - time.monotonic()))
+        if self._side is not None and not any(
+                ex.is_alive() for ex in self._executors):
+            dist.destroy_process_group(self._side)
+            self._side = None
 
     def __enter__(self):
         return self
@@ -806,6 +835,7 @@ class GenerationSession:
             torch.cuda.set_device(self.dev)
         try:
             while True:
+                self._round += 1
                 plan = self._share(self._decide() if self._decides
                                    else None)
                 if plan == "stop":
@@ -901,16 +931,13 @@ class GenerationSession:
             inst = self._members[i]
 
             def job(prompt=prompt, inst=inst, s=s):
-                d = self._sleep_for(inst.iid)
-                if d:
-                    time.sleep(d)
                 toks = torch.tensor([prompt], dtype=torch.int32,
                                     device=self.dev)          # [1, P]
                 logits, one = self._prefill(inst.params, tokens=toks,
                                             cache_len=self.max_seq)
                 _write_slot(inst.pool, one, s)
                 return to_host(logits[0, -1])
-            jobs.append(inst.ex.submit(job))
+            jobs.append(self._submit(inst, "prefill", job, delayed=True))
         # first tokens come from the prefill logits (admission path,
         # uncoded); decode steps from here on are coded
         rows = [_result(job) for job in jobs]
@@ -967,7 +994,7 @@ class GenerationSession:
                                        embeds=self._encode(j, embs),
                                        cache_len=self.max_seq)
                 _write_slot(inst.pool, one, s)
-            jobs.append(inst.ex.submit(job))
+            jobs.append(self._submit(inst, "rebuild", job))
         for j, job in enumerate(jobs):
             _result(job)
             self._ppos[j, s] = L
@@ -989,16 +1016,14 @@ class GenerationSession:
         member_out = []
         for i, inst in enumerate(self._members):
             def job(inst=inst, ti=tok[i], pi=pos[i]):
-                d = self._sleep_for(inst.iid)
-                if d:
-                    time.sleep(d)
                 logits, inst.pool = self._decode(
                     inst.params, inst.pool,
                     torch.as_tensor(pi, device=self.dev),
                     token=torch.as_tensor(ti, device=self.dev))
                 return to_host(logits)             # [n_slots, 1, V]
 
-            member_out.append(inst.ex.submit(job))
+            member_out.append(self._submit(inst, "decode", job,
+                                           delayed=True))
 
         # parity jobs: encoded input embedding, own cache column positions.
         # Unoccupied (member, slot) cells carry token 0 only for shape — mask
@@ -1007,9 +1032,6 @@ class GenerationSession:
         active_slots = {s for _, s in active}
         for j, inst in enumerate(self._parities):
             def pjob(j=j, inst=inst, ppos_j=self._ppos[j].astype(np.int32)):
-                d = self._sleep_for(inst.iid)
-                if d:
-                    time.sleep(d)
                 toks = torch.as_tensor(tok.reshape(k * n_slots, 1),
                                        device=self.dev)
                 mask = torch.as_tensor(occ, device=self.dev)
@@ -1020,7 +1042,8 @@ class GenerationSession:
                     torch.as_tensor(ppos_j, device=self.dev),
                     embed=self._encode(j, embs.unbind(0)))
                 return to_host(logits)
-            parity_out.append(inst.ex.submit(pjob))
+            parity_out.append(self._submit(inst, "decode", pjob,
+                                           delayed=True))
             self._ppos[j][list(active_slots)] += 1
 
         outcome = self._share(self._collect(active, member_out, parity_out,

@@ -542,16 +542,38 @@ def test_generation_spec_refuses_a_sharded_mesh(arch):
             GenerationSpec(mesh=mesh, device="cpu", **kw)
 
 
-def test_generation_spec_refuses_several_cards():
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-780m",
+                                  "jamba-1.5-large-398b"])
+def test_generation_spec_refuses_several_cards(arch):
     """A mesh of several cards (NCCL) raises ``ValueError`` naming
-    ROADMAP.md C.3, for a plan that a CPU mesh serves: on four cards the
-    session has hung before its first token."""
+    ROADMAP.md C.4 for a MoE, SSM or hybrid plan, which a CPU mesh serves:
+    on several cards only dense plans have been held to one card's
+    tokens."""
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+    cfg = tbase.get_config(arch, reduced=True)
+    with fake_world(4):
+        GenerationSpec(cfg=cfg, mesh=make_test_mesh((2, 2)), device="cpu")
+        mesh = make_test_mesh((2, 2), device_type="cuda")
+        with pytest.raises(ValueError, match="C.4"):
+            GenerationSpec(cfg=cfg, mesh=mesh, device="cpu")
+
+
+def test_generation_spec_accepts_several_cards():
+    """A mesh of several cards (NCCL) is accepted for a dense plan, whose
+    session keeps every rank's collectives in one order on one device
+    thread (``tools/sharded_serve.py`` serves it on four cards), and still
+    refuses a cross-attending plan, naming ROADMAP.md B.5."""
     from repro_torch.launch.mesh import fake_world, make_test_mesh
     with fake_world(4):
         mesh = make_test_mesh((2, 2), device_type="cuda")
-        with pytest.raises(ValueError, match="C.3"):
-            GenerationSpec(cfg=tbase.get_config("qwen2-0.5b", reduced=True),
-                           mesh=mesh, device="cpu")
+        spec = GenerationSpec(
+            cfg=tbase.get_config("qwen2-0.5b", reduced=True), mesh=mesh,
+            device="cpu")
+        assert spec.mesh.device_type == "cuda" and spec.mesh.size() == 4
+        with pytest.raises(ValueError, match="B.5"):
+            GenerationSpec(
+                cfg=tbase.get_config("llama-3.2-vision-11b", reduced=True),
+                mesh=mesh, device="cpu")
 
 
 def _op_calls(x, kv):

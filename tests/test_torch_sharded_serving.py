@@ -25,6 +25,10 @@ rank runs every case and writes its results, which the tests below read:
 * (iv) one rank's failure: member 0's first decode job raises on one rank
   (the decider, rank 0, or rank 2), after the job's collectives; every
   rank's ``wait_all`` raises within FAIL_TIMEOUT_S, naming that rank.
+* (v) the device thread: in (iii)'s serve each rank records the device
+  jobs it ran (``GenerationSession.issued``: instance, kind, round, delay,
+  thread); every rank ran the same jobs in the same order, from one
+  thread, member 0's decodes held back by the delay and still rebuilt.
 
 Each process group meets at a ``FileStore`` under a temporary directory
 (no port: several test workers run at once).  This module imports JAX only
@@ -224,10 +228,11 @@ def _spec(mesh, arch, tree, straggle_ms=60_000.0, delay_fn=None):
         straggle_ms=straggle_ms, delay_fn=delay_fn)
 
 
-def _serve(mesh, arch, tree, delay_s=0.0):
+def _serve(mesh, arch, tree, delay_s=0.0, issued=None):
     """Cases (ii) and (iii): ``deploy_lm`` of reduced ``arch`` on ``mesh``,
     every rank submitting PROMPTS in order; member 0 ``delay_s`` late on
-    every job."""
+    every job.  ``issued``, a list, receives the session's record of the
+    device jobs it ran (case (v))."""
     from repro_torch.serving.api import deploy_lm
     from repro_torch.serving.scenarios import instance_id
     slow, calls = instance_id("main", 0), []
@@ -245,6 +250,8 @@ def _serve(mesh, arch, tree, delay_s=0.0):
         futs = [sess.submit(p) for p in PROMPTS]
         assert sess.wait_all(timeout=120.0)
         stats = sess.stats()
+    if issued is not None:
+        issued.extend(sess.issued)
     return {"tokens": [f.result() for f in futs],
             "rebuilt_by_rid": [f.reconstructed_steps for f in futs],
             "completed_by": stats.completed_by, "n": stats.n,
@@ -257,22 +264,23 @@ def _failing_serve(mesh, tree, fail_rank):
     ``fail_rank``'s member 0 raises in its first decode job once the job
     has gathered its logits (so the other ranks' jobs end): whether and
     how every rank's ``wait_all`` raises, and how soon."""
-    import threading
     import time
     import torch.distributed as dist
     from repro_torch.serving import generation as G
     from repro_torch.serving.api import deploy_lm
-    real = G.to_host
+    real, served = G.to_host, []
 
     def planted(x):
+        # the running job is the session's last record (made before it runs)
         y = real(x)
-        if dist.get_rank() == fail_rank and y.ndim == 3 and \
-                threading.current_thread().name == "lm-member-0":
+        if dist.get_rank() == fail_rank and y.ndim == 3 and served and \
+                served[0].issued[-1][0] == "lm-member-0":
             raise RuntimeError("planted decode failure")
         return y
     G.to_host = planted
     try:
         with deploy_lm(_spec(mesh, ARCH, tree)) as sess:
+            served.append(sess)
             for p in PROMPTS:
                 sess.submit(p)
             t0, error = time.monotonic(), None
@@ -296,8 +304,11 @@ def _worker(rank, root, trees):
             world_size=WORLD)
         try:
             mesh = make_test_mesh((2, 2))
+            issued = []
             out = {"kernel_route": _kernel_route(mesh, trees[ARCH]),
-                   "straggler": _serve(mesh, ARCH, trees[ARCH], DELAY_S),
+                   "straggler": _serve(mesh, ARCH, trees[ARCH], DELAY_S,
+                                       issued),
+                   "issued": issued,
                    **{arch: _serve(mesh, arch, trees[arch])
                       for arch in PLANS},
                    "failures": {str(r): _failing_serve(mesh, trees[ARCH], r)
@@ -500,3 +511,37 @@ def test_one_ranks_failure_stops_every_rank(world, fail_rank):
         assert f"rank {fail_rank}: RuntimeError: planted decode failure" \
             in out["error"]
         assert out["seconds"] < FAIL_TIMEOUT_S
+
+
+# --------------------------------------------------------------------------
+# (v) one device thread per rank, one order on every rank
+# --------------------------------------------------------------------------
+def test_every_rank_runs_the_same_jobs_in_order_on_one_thread(world):
+    """With member 0 late: each rank's device jobs (instance, kind, round,
+    delay) are the same sequence, all from one thread; within a round,
+    admissions' prefills, then parity rebuilds, then members 0..K-1, then
+    the parities; member 0's decodes ran in every decode round, held back
+    by DELAY_S, and were rebuilt."""
+    seqs = [[tuple(job[:4]) for job in rank["issued"]] for rank in world]
+    for rank in world:
+        assert len({job[4] for job in rank["issued"]}) == 1
+    assert all(seq == seqs[0] for seq in seqs[1:])
+    seq = seqs[0]
+    names = [f"lm-member-{i}" for i in range(K)] + \
+        [f"lm-parity-{j}" for j in range(R)]
+    assert seq[:K + R] == [(n, "warm", 0, 0.0) for n in names]
+    order = {"prefill": 0, "rebuild": 1, "decode": 2}
+    rounds = sorted({job[2] for job in seq[K + R:]})
+    decodes = 0
+    for rnd in rounds:
+        jobs = [job for job in seq if job[2] == rnd]
+        assert jobs == sorted(jobs, key=lambda j: order[j[1]])
+        dec = [j for j in jobs if j[1] == "decode"]
+        if dec:
+            decodes += 1
+            assert [j[0] for j in dec] == names
+            assert dec[0][3] == DELAY_S
+            assert all(j[3] == 0.0 for j in dec[1:])
+    # every decode round of member 0's streams ran its late job
+    assert decodes >= NEW - 1
+    assert world[0]["straggler"]["reconstructed_steps"] >= decodes
