@@ -102,7 +102,11 @@ Phases, in order; any failure exits non-zero:
                to phase 8's loop up to near-ties) and with member 0 late
                on every decode step (member 1 equal to the loop), every
                launch on the tensor-core routes, and the decode step's
-               host and device ms on the mesh beside the plain step's.
+               host and device ms on the mesh beside the plain step's;
+               then full-width mamba2-780m (bf16) and reduced
+               jamba-1.5-large-398b (fp32) served the same way, each
+               held to its own one-card loop (jamba's B7 and B8 on their
+               SIMT routes, none for mamba2).
 
 ``python3 chip_smoke.py --distil-lrs 1e-4,1e-3`` runs phase 9's
 distillation alone at each learning rate, and ``--sharded-only`` phase 14
@@ -1484,31 +1488,91 @@ def lm_prompts(vocab):
             for n in rng.integers(256, 1025, LM_REQUESTS)]
 
 
-def lm_greedy(cfg, params, prompt, seq=LM_SEQ, **context):
+def lm_greedy(cfg, params, prompt, seq=LM_SEQ, new=LM_NEW, **context):
     """The uncoded greedy loop over the port's prefill / decode_step (batch
-    1, scalar pos, a cache of ``seq`` positions, ``context`` the prefill's
-    cross_embeds where the plan takes one): tokens, each step's top-2 logit
-    gap and runner-up, and each step's eight best tokens with their gaps to
-    the best."""
-    toks, gaps, second, ranked = [], [], [], []
+    1, scalar pos, a cache of ``seq`` positions, ``new`` tokens,
+    ``context`` the prefill's cross_embeds where the plan takes one):
+    tokens, each step's top-2 logit gap and runner-up, and each step's
+    eight best tokens with their gaps to the best."""
+    result = ([], [], [], [])
     with torch.inference_mode():
         logits, cache = T.prefill(cfg, params, tokens=torch.tensor(
             [prompt], device=DEV), cache_len=seq, **context)
         row = logits[0, -1]
-        for pos in range(len(prompt), len(prompt) + LM_NEW):
-            top = torch.topk(row, 8)
-            toks.append(int(top.indices[0]))
-            second.append(int(top.indices[1]))
-            gaps.append(float(top.values[0] - top.values[1]))
-            ranked.append(dict(zip(top.indices.tolist(),
-                                   (top.values[0] - top.values).tolist())))
-            if len(toks) == LM_NEW:
+        for pos in range(len(prompt), len(prompt) + new):
+            tok = greedy_step(result, row)
+            if len(result[0]) == new:
                 break
             logits, cache = T.decode_step(
                 cfg, params, cache, pos,
-                token=torch.tensor([[toks[-1]]], device=DEV))
+                token=torch.tensor([[tok]], device=DEV))
             row = logits[0, 0]
-    return toks, gaps, second, ranked
+    return result
+
+
+def greedy_step(result, row):
+    """Append ``row``'s best token, top-2 gap, runner-up and eight best
+    tokens with their gaps to the best to ``result`` (``lm_greedy``'s four
+    lists); returns the token."""
+    top = torch.topk(row, 8)
+    toks, gaps, second, ranked = result
+    toks.append(int(top.indices[0]))
+    second.append(int(top.indices[1]))
+    gaps.append(float(top.values[0] - top.values[1]))
+    ranked.append(dict(zip(top.indices.tolist(),
+                           (top.values[0] - top.values).tolist())))
+    return toks[-1]
+
+
+def mesh_greedy(cfg, params, mesh, prompts, slots=LM_SLOTS, seq=LM_SEQ,
+                new=LM_NEW):
+    """The mesh's own uncoded greedy loop, summed as a serving session on
+    ``mesh`` sums: ``params`` placed by ``place_inference_params``, on this
+    thread alone under the serving rules and implicit replication.  The
+    prompts go in groups of ``slots``, as a session's members take them:
+    each prefilled at batch 1 into its slot of a pool at
+    ``place_cache_pool``'s layout, then the group decoded together at batch
+    ``slots`` with per-row positions, so that every sum has the serve's
+    operands.  Returns ``lm_greedy``'s result for each prompt."""
+    from repro_torch.distributed.logical import implicit_replication
+    from repro_torch.serving.generation import (_write_slot,
+                                                place_cache_pool,
+                                                serving_rules)
+    out = []
+    with logical_rules(*serving_rules(mesh)), implicit_replication(), \
+            torch.no_grad():
+        for g in range(0, len(prompts), slots):
+            group = prompts[g:g + slots]
+            pool = place_cache_pool(T.init_cache(cfg, slots, seq,
+                                                 device=DEV), mesh)
+            rows = []
+            for s, prompt in enumerate(group):
+                logits, one = T.prefill(cfg, params, tokens=torch.tensor(
+                    [prompt], dtype=torch.int32, device=DEV), cache_len=seq)
+                _write_slot(pool, one, s)
+                rows.append(whole(logits[0, -1]))
+            results = [([], [], [], []) for _ in group]
+            pos = np.zeros(slots, np.int32)
+            pos[:len(group)] = [len(p) for p in group]
+            for _ in range(new - 1):
+                tok = np.zeros((slots, 1), np.int32)
+                for s, (res, row) in enumerate(zip(results, rows)):
+                    tok[s, 0] = greedy_step(res, row)
+                logits, pool = T.decode_step(
+                    cfg, params, pool, torch.as_tensor(pos, device=DEV),
+                    token=torch.as_tensor(tok, device=DEV))
+                rows = list(whole(logits)[:len(group), 0])
+                pos[:len(group)] += 1
+            for res, row in zip(results, rows):
+                greedy_step(res, row)
+            out.extend(results)
+    return out
+
+
+def whole(x):
+    """A DTensor gathered whole (``full_tensor``); a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def check_tokens(label, served, loop, any_rank=False, new=LM_NEW):
@@ -3107,6 +3171,11 @@ def phase13():
 # every op of a step goes through DTensor's dispatcher, ~0.07 ms of host
 # time each on torch 2.11, and one thread runs the three instances' steps)
 SHARDED_NEW = LM_NEW // 4
+# after qwen2-0.5b the path serves the other families' plans on the same
+# mesh, each held to its own one-card loop: full-width mamba2-780m (bf16,
+# attention-free) and reduced jamba-1.5-large-398b (fp32: B7 and B8 on
+# their SIMT routes); (arch, reduced)
+SHARDED_FAMILIES = ((SSM_ARCH, False), (HYBRID_ARCH, True))
 
 
 def replicated(tree, mesh):
@@ -3188,13 +3257,13 @@ def log_step_costs(mesh_name, pos, costs, extra=""):
 
 
 def sharded_serves(cfg, params, mesh, prompts, loops, served=None,
-                   any_rank=False):
+                   any_rank=False, held_to="phase 8's loop"):
     """deploy_lm on ``mesh``, SHARDED_NEW tokens per request: a clean serve
-    whose tokens equal the loop's up to near-ties (``check_tokens``, with
-    ``any_rank``; and, where ``served`` holds phase 8's tokens, how many
-    streams equal them), then member 0 late on every decode step (its
-    admissions' prefills on time), member 1's streams equal to the loop.
-    Returns a summary."""
+    whose tokens equal the loop's (``held_to`` names it) up to near-ties
+    (``check_tokens``, with ``any_rank``; and, where ``served`` holds phase
+    8's tokens, how many streams equal them), then member 0 late on every
+    decode step (its admissions' prefills on time), member 1's streams
+    equal to the loop.  Returns a summary."""
     futs, clean, setup_s, serve_s = lm_serve(cfg, params, prompts, 10_000.0,
                                              mesh=mesh, new=SHARDED_NEW)
     log_serve("no straggler", clean, setup_s, serve_s, 10_000.0,
@@ -3211,11 +3280,15 @@ def sharded_serves(cfg, params, mesh, prompts, loops, served=None,
                 f"to phase 8's serve without a mesh" if served else
                 "phase 8's serve not run")
     log(f"[sharded] no straggler: all {LM_REQUESTS} requests answered "
-        f"{SHARDED_NEW} tokens equal to phase 8's loop (first differing "
+        f"{SHARDED_NEW} tokens equal to {held_to} (first differing "
         f"(step, top-2 gap) at a near-tie, by rid: "
         f"{ {r: t for r, t in ties.items() if t is not None} }); "
         f"{vs_serve}")
 
+    # the clean session's placed parameters and pools go first: its
+    # threads hold it in reference cycles that only a collection breaks
+    gc.collect()
+    torch.cuda.empty_cache()
     straggle_ms = max(25.0, 3.0 * clean.inter_token_p50_ms)
     delay_s, slow, calls = 1.2 * straggle_ms / 1e3, instance_id("main", 0), []
 
@@ -3240,8 +3313,52 @@ def sharded_serves(cfg, params, mesh, prompts, loops, served=None,
                       "streams_equal_to_unmeshed": same},
             "straggler": {"completed_by": strag.completed_by,
                           "reconstructed_steps": strag.reconstructed_steps,
+                          "tokens": [f.result() for f in futs],
                           "straggle_ms": straggle_ms,
                           "rebuilt_agreement": agree}}
+
+
+def sharded_family(arch, reduced, mesh, uncounted):
+    """``arch``'s plan (seed 0) served as phase 14 serves qwen2-0.5b, its
+    parameters DTensors on ``mesh``: the clean serve and member 0 late,
+    tokens held to its own one-card loop (uncounted) under the token rule
+    (any of the loop's eight best within LM_GAP_TOL); its B7 and B8
+    launches on the route of its dtype, none for an attention-free plan.
+    Returns a summary."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch, reduced=reduced)
+    params = T.init_params(cfg, 0, device=DEV)
+    prompts = lm_prompts(cfg.vocab)
+    with uncounted():
+        loops = [lm_greedy(cfg, params, p, new=SHARDED_NEW)
+                 for p in prompts]
+    before, before_routes = counts(), route_counts()
+    served = sharded_serves(cfg, replicated(params, mesh), mesh, prompts,
+                            loops, any_rank=True,
+                            held_to=f"{cfg.name}'s one-card loop")
+    launched = {name: counts()[name] - before[name] for name in PATH9}
+    flash, dec = route_delta(before_routes)
+    attends = any(s["mixer"] == "attn" for s in T.layer_plan(cfg))
+    b7, b8 = ("wgmma", "mma") if cfg.dtype == "bfloat16" else (
+        "simt", "simt")
+    seconds = time.perf_counter() - t0
+    log(f"[sharded] {cfg.name} ({cfg.dtype}, {cfg.n_layers} layers, "
+        f"{T.param_count(params)} parameters) on the {tuple(mesh.shape)} "
+        f"mesh in {seconds:.1f} s: tokens held to its one-card loop; "
+        f"launches {launched}, B7 by route {flash}, B8 by route {dec}"
+        + ("" if attends else " (attention-free: none expected)"))
+    if attends != bool(launched["flash_attention"]) or \
+            attends != bool(launched["decode_attention"]) or \
+            flash[b7] != launched["flash_attention"] or \
+            dec[b8] != launched["decode_attention"]:
+        raise AssertionError(f"sharded {cfg.name}: launches {launched}, B7 "
+                             f"by route {flash}, B8 {dec}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(served, arch=cfg.name, dtype=cfg.dtype,
+                layers=cfg.n_layers, launches=launched, b7_routes=flash,
+                b8_routes=dec, seconds=seconds)
 
 
 def phase14(ref, lm=None):
@@ -3270,22 +3387,27 @@ def phase14(ref, lm=None):
         pos = step_positions(prompts)
         with uncounted():
             costs = mesh_step_costs(cfg, params, dparams, mesh, pos)
+        qwen = {name: counts()[name] - uncounted.n[name] for name in PATH9}
+        del params, dparams
+        routes, droutes = route_counts()
+        if routes != {"wgmma": counts()["flash_attention"], "simt": 0} or \
+                droutes != {"mma": counts()["decode_attention"], "simt": 0}:
+            raise AssertionError(f"sharded: B7 launches by route {routes}, "
+                                 f"B8 {droutes}, of {counts()}: not all on "
+                                 f"the tensor-core routes")
+        log(f"[sharded] B7 and B8 through the local_map route: B7 "
+            f"{qwen['flash_attention']} launches, B8 "
+            f"{qwen['decode_attention']} on {cfg.name}'s serves; every "
+            f"launch of them on the tensor-core routes (measurements "
+            f"included: B7 {routes}, B8 {droutes})")
+        p8 = (f"; phase 8's plain step {lm['decode_step_ms']:.3f} ms host, "
+              f"{lm['decode_step_device_ms']:.3f} ms device" if lm else "")
+        log_step_costs("(1, 1)", pos, costs, p8)
+        gc.collect()
+        torch.cuda.empty_cache()
+        families = {arch: sharded_family(arch, reduced, mesh, uncounted)
+                    for arch, reduced in SHARDED_FAMILIES}
     path = {name: v - uncounted.n[name] for name, v in counts().items()}
-    del params, dparams
-    routes = {name: c.value for name, c in k_flash.route_launches.items()}
-    droutes = {name: c.value for name, c in k_dattn.route_launches.items()}
-    if routes != {"wgmma": counts()["flash_attention"], "simt": 0} or \
-            droutes != {"mma": counts()["decode_attention"], "simt": 0}:
-        raise AssertionError(f"sharded: B7 launches by route {routes}, B8 "
-                             f"{droutes}, of {counts()}: not all on the "
-                             f"tensor-core routes")
-    log(f"[sharded] B7 and B8 through the local_map route: B7 "
-        f"{path['flash_attention']} launches, B8 {path['decode_attention']} "
-        f"on the serving path; every launch of phase 14 on the tensor-core "
-        f"routes (measurements included: B7 {routes}, B8 {droutes})")
-    p8 = (f"; phase 8's plain step {lm['decode_step_ms']:.3f} ms host, "
-          f"{lm['decode_step_device_ms']:.3f} ms device" if lm else "")
-    log_step_costs("(1, 1)", pos, costs, p8)
     log(f"[sharded] main-path launches {path} (measurement launches left "
         f"out: {dict(uncounted.n)})")
     missing = [name for name in PATH9 if path[name] == 0]
@@ -3293,7 +3415,8 @@ def phase14(ref, lm=None):
         raise AssertionError(f"kernels never launched on the sharded "
                              f"serving path: {missing}")
     return path, dict(mesh=[1, 1], backend="nccl", **served, **costs,
-                      flash_routes=routes, decode_routes=droutes)
+                      flash_routes=routes, decode_routes=droutes,
+                      families=families)
 
 
 def sharded_only():

@@ -97,7 +97,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-from repro_torch.convert import resolve_device, to_host, tree_leaves
+from repro_torch.convert import (resolve_device, to_host, tree_leaves,
+                                 tree_map)
 from repro_torch.distributed import logical
 from repro_torch.core.scheme import get_scheme
 from repro_torch.serving.api import (BatchingPolicy, DeploymentSpec, Trace,
@@ -137,11 +138,11 @@ class GenerationSpec:
     session is SPMD (``GenerationSession``).  DTensor parameters on a mesh
     of one device also take the SPMD path: that is a hook for checking the
     sharded path on one card (``chip_smoke.py`` phase 14), not a way to
-    deploy.  A plan that does not serve on a mesh raises ``ValueError``
-    here, naming its ``ROADMAP.md`` item (``_refusal``): a cross-attending
-    plan or a substrate override (B.5), and on several cards over NCCL a
-    plan other than a dense one (C.4: only dense plans have been checked
-    there).
+    deploy.  A substrate override serves on a mesh too: its parameters are
+    placed as the transformer's are (names the rules do not know
+    replicated) and its pool is replicated.  A cross-attending plan does
+    not serve on a mesh and raises ``ValueError`` here, naming
+    ``ROADMAP.md`` B.5 (``_refusal``).
     """
 
     cfg: Any = None
@@ -432,7 +433,7 @@ def place_inference_params(params, mesh):
     return rules.distribute(params, rules.params(params))
 
 
-def place_cache_pool(pool, mesh):
+def place_cache_pool(pool, mesh, known=True):
     """A serving cache pool (``init_cache``'s tree, leaves [G, slots, ...])
     as DTensors on ``mesh``, a mesh of one device too (the pool of DTensor
     parameters): attention K/V [G, slots, S, KV, hd] with the slots over
@@ -443,12 +444,15 @@ def place_cache_pool(pool, mesh):
     The sequence stays whole because the decode-attention kernel (B8) runs
     on each rank's local shard and returns no log-sum-exp that shards of a
     sequence could be combined with (``layers._decode_kernel``).  Each rank
-    keeps its own block of the (zero) pool: nothing is communicated."""
+    keeps its own block of the (zero) pool: nothing is communicated.  A
+    substrate override's pool (``known`` False), whose leaves the rules
+    cannot name, is replicated whole on every rank."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.distributed.logical import placements
     from repro_torch.distributed.sharding import ShardingRules, _zip_map
     rules = ShardingRules(mesh, fsdp_params=False)
-    specs = rules.cache_specs(pool, whole_seq=True)
+    specs = rules.cache_specs(pool, whole_seq=True) if known else \
+        tree_map(lambda x: (None,) * x.ndim, pool)
     return _zip_map(lambda x, spec: distribute_tensor(
         x, mesh, placements(spec, mesh), src_data_rank=None), pool, specs)
 
@@ -490,33 +494,16 @@ def _write_slot(pool, one, s):
             dst, src.to(dst.dtype), _replicated(hit, mesh)))
 
 
-# the plan families served on several cards over NCCL and held there to
-# one card's tokens (tools/sharded_serve.py); the others are checked on CPU
-# ranks over gloo and on one card only
-CARD_CHECKED_FAMILIES = ("dense",)
-
-
 def _refusal(spec):
     """Why ``spec`` may not serve on its mesh and the ``ROADMAP.md`` item
-    that says so, or None.  A mesh serves the transformer substrate of the
-    plans this port has held to the unsharded port and to the reference on
-    a sharded mesh (``tests/test_torch_sharded_serving.py``), on CPU ranks
-    over gloo and on one card; on several cards over NCCL, the families of
-    ``CARD_CHECKED_FAMILIES``."""
+    that says so, or None: a cross-attending plan, whose prefill the
+    session hands no ``cross_embeds``, as the reference's does not (B.5).
+    A substrate override is the user's model, not ``cfg``'s."""
     cfg = spec.cfg
-    if spec.prefill_fn is not None:
-        return ("a substrate override (prefill_fn, ...) is not mesh-aware",
-                "B.5")
-    if cfg is None:
-        return "a mesh serves the transformer substrate of cfg=", "B.5"
-    if cfg.enc_dec or cfg.cross_attn_every:
+    if spec.prefill_fn is None and cfg is not None and (
+            cfg.enc_dec or cfg.cross_attn_every):
         return (f"{cfg.name} cross-attends, and the session hands its "
                 f"prefill no cross_embeds", "B.5")
-    if spec.mesh.device_type == "cuda" and spec.mesh.size() > 1 and \
-            cfg.family not in CARD_CHECKED_FAMILIES:
-        return (f"{cfg.name} ({cfg.family}) has not been held to one "
-                f"card's tokens on several cards; "
-                f"{', '.join(CARD_CHECKED_FAMILIES)} plans have", "C.4")
     return None
 
 
@@ -680,7 +667,8 @@ class GenerationSession:
     def _new_pool(self, inst):
         pool = self._init_cache(inst.params, self.n_slots, self.max_seq)
         if self._sharded:
-            pool = place_cache_pool(pool, self.spec.mesh)
+            pool = place_cache_pool(pool, self.spec.mesh,
+                                    known=self.spec.prefill_fn is None)
         return pool
 
     def _submit(self, inst, kind, fn, delayed=False):

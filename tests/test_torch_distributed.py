@@ -527,35 +527,43 @@ def test_kernel_route_refuses_a_sequence_sharded_cache(one_rank_mesh):
                                   "seamless-m4t-medium", None])
 def test_generation_spec_refuses_a_sharded_mesh(arch):
     """A (2, 2) mesh serves the decoder-only plans
-    (``tests/test_torch_sharded_serving.py``); a cross-attending plan, or a
-    substrate override (``arch`` None: the tests' linear stub), raises
-    ``ValueError`` naming ROADMAP.md B.5, on the spec, before any serving
-    thread starts."""
+    (``tests/test_torch_sharded_serving.py``) and a substrate override
+    (``arch`` None: the tests' linear stub, on CPU ranks and on cards); a
+    cross-attending plan raises ``ValueError`` naming ROADMAP.md B.5, on
+    the spec, before any serving thread starts."""
+    from test_torch_lm_serving import _linear_substrate
     from repro_torch.launch.mesh import fake_world, make_test_mesh
     with fake_world(4):
         mesh = make_test_mesh((2, 2))
         GenerationSpec(cfg=tbase.get_config("qwen2-0.5b", reduced=True),
                        mesh=mesh, device="cpu")
-        kw = (dict(cfg=tbase.get_config(arch, reduced=True)) if arch else
-              dict(prefill_fn=lambda *a, **k: None))
+        if arch is None:
+            params, fns = _linear_substrate()
+            for m in (mesh, make_test_mesh((2, 2), device_type="cuda")):
+                spec = GenerationSpec(params=params, mesh=m, device="cpu",
+                                      **fns)
+                assert spec.mesh is m and spec.prefill_fn is not None
+            return
         with pytest.raises(ValueError, match="B.5"):
-            GenerationSpec(mesh=mesh, device="cpu", **kw)
+            GenerationSpec(cfg=tbase.get_config(arch, reduced=True),
+                           mesh=mesh, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-780m",
                                   "jamba-1.5-large-398b"])
 def test_generation_spec_refuses_several_cards(arch):
-    """A mesh of several cards (NCCL) raises ``ValueError`` naming
-    ROADMAP.md C.4 for a MoE, SSM or hybrid plan, which a CPU mesh serves:
-    on several cards only dense plans have been held to one card's
-    tokens."""
+    """A mesh of several cards (NCCL) serves a MoE, SSM or hybrid plan, as a
+    CPU mesh does: ``tools/sharded_serve.py`` held each family on four
+    cards to one card's fp32 tokens and, in bf16, to the mesh's own loop
+    (ROADMAP.md C.4, closed), so neither mesh refuses the plan."""
     from repro_torch.launch.mesh import fake_world, make_test_mesh
     cfg = tbase.get_config(arch, reduced=True)
     with fake_world(4):
-        GenerationSpec(cfg=cfg, mesh=make_test_mesh((2, 2)), device="cpu")
-        mesh = make_test_mesh((2, 2), device_type="cuda")
-        with pytest.raises(ValueError, match="C.4"):
-            GenerationSpec(cfg=cfg, mesh=mesh, device="cpu")
+        for device_type in ("cpu", "cuda"):
+            spec = GenerationSpec(cfg=cfg, mesh=make_test_mesh(
+                (2, 2), device_type=device_type), device="cpu")
+            assert spec.mesh.device_type == device_type
+            assert spec.mesh.size() == 4
 
 
 def test_generation_spec_accepts_several_cards():

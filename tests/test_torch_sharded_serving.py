@@ -29,6 +29,18 @@ rank runs every case and writes its results, which the tests below read:
   jobs it ran (``GenerationSession.issued``: instance, kind, round, delay,
   thread); every rank ran the same jobs in the same order, from one
   thread, member 0's decodes held back by the delay and still rebuilt.
+* (vi) the mesh's own uncoded greedy loop (``chip_smoke.mesh_greedy``:
+  the placed parameters under the serving rules, one thread, each
+  member's prompts prefilled into its pool at the serving layout and
+  decoded together, as the serve does), which the bf16 serves on four
+  cards are held to, gives the unsharded port's loop tokens for every
+  plan.
+* (vii) a substrate override, the linear stub of
+  ``tests/test_torch_lm_serving.py``, served on the mesh, clean and with
+  member 0 late: its parameters and pools replicated DTensors, every rank
+  the same tokens, those of the unsharded port and of the JAX package's
+  ``GenerationSession`` with the reference's stub
+  (``tests/test_generation.py``).
 
 Each process group meets at a ``FileStore`` under a temporary directory
 (no port: several test workers run at once).  This module imports JAX only
@@ -37,8 +49,10 @@ inside the tests that need it: the spawned workers import the module.
 import json
 import multiprocessing as mp
 import os
+import sys
 import traceback
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -62,6 +76,9 @@ STRAGGLE_MS, DELAY_S = 2000.0, 2.5
 BATCH, PROMPT, STEPS = 4, 8, 3
 # case (iv): the ranks that fail, and how long every rank may take to stop
 FAIL_RANKS, FAIL_TIMEOUT_S = (0, 2), 60.0
+# case (vii): the linear stub's vocabulary and width
+V, D = 29, 8
+ROOT = Path(__file__).resolve().parents[1]
 
 
 # --------------------------------------------------------------------------
@@ -294,6 +311,96 @@ def _failing_serve(mesh, tree, fail_rank):
     return {"error": error, "seconds": seconds}
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` (its helpers) on the CPU."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    chip_smoke.DEV = "cpu"
+    return chip_smoke
+
+
+def _loops(arch, tree, mesh=None):
+    """Case (vi): the uncoded greedy loop's tokens for PROMPTS over reduced
+    ``arch``, on ``mesh`` (its own loop) or unsharded."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.serving.generation import place_inference_params
+    cs = _chip_smoke()
+    cfg = get_config(arch, reduced=True)
+    params = params_from_numpy(tree, "cpu")
+    if mesh is None:
+        return [cs.lm_greedy(cfg, params, p, seq=SEQ, new=NEW)[0]
+                for p in PROMPTS]
+    return [loop[0] for loop in cs.mesh_greedy(
+        cfg, place_inference_params(params, mesh), mesh, PROMPTS,
+        slots=SLOTS, seq=SEQ, new=NEW)]
+
+
+def _linear_substrate(seed=0):
+    """``tests/test_torch_lm_serving.py``'s exactness stub (a running sum
+    of token embeddings, logits linear in it), written here so that the
+    spawned ranks import no JAX."""
+    rng = np.random.default_rng(seed)
+    emb = torch.tensor(rng.normal(size=(V, D)).astype(np.float32))
+    W = torch.tensor(rng.normal(size=(D, V)).astype(np.float32))
+
+    def embed_fn(p, tokens):
+        return p["embed"][torch.as_tensor(tokens).long()]
+
+    def prefill_fn(p, tokens=None, embeds=None, cache_len=0):
+        e = embeds if embeds is not None else embed_fn(p, tokens)
+        state = e.sum(dim=1)                             # [B, D]
+        return (state @ p["W"])[:, None], {"state": state[None]}
+
+    def decode_fn(p, cache, pos, token=None, embed=None):
+        e = embed if embed is not None else embed_fn(p, token)   # [B, 1, D]
+        state = cache["state"] + e[None, :, 0]           # [1, B, D]
+        return (state[0] @ p["W"])[:, None], {"state": state}
+
+    def init_cache_fn(p, batch, cache_len):
+        return {"state": torch.zeros((1, batch, D))}
+
+    return {"embed": emb, "W": W}, dict(
+        prefill_fn=prefill_fn, decode_fn=decode_fn, embed_fn=embed_fn,
+        init_cache_fn=init_cache_fn)
+
+
+def _stub_serve(mesh=None, delay_s=0.0):
+    """Case (vii): the linear stub served on ``mesh`` (None: unsharded),
+    every rank submitting PROMPTS; member 0 ``delay_s`` late on every
+    decode job."""
+    from repro_torch.serving.api import BatchingPolicy, deploy_lm
+    from repro_torch.serving.generation import GenerationSpec
+    from repro_torch.serving.scenarios import instance_id
+    slow, calls = instance_id("main", 0), []
+
+    def delay(iid):
+        if iid != slow:
+            return 0.0
+        calls.append(iid)
+        return delay_s if len(calls) > SLOTS else 0.0
+    params, fns = _linear_substrate()
+    spec = GenerationSpec(
+        params=params, k=K, r=R, batching=BatchingPolicy(max_size=SLOTS),
+        max_seq_len=SEQ, max_new_tokens=NEW, mesh=mesh, device="cpu",
+        straggle_ms=STRAGGLE_MS if delay_s else 60_000.0, delay_fn=delay,
+        **fns)
+    with deploy_lm(spec) as sess:
+        futs = [sess.submit(p) for p in PROMPTS]
+        assert sess.wait_all(timeout=120.0)
+        stats = sess.stats()
+        replicated = {name: [p.is_replicate() for p in
+                             getattr(x, "placements", ())]
+                      for name, x in [*sess.params.items(),
+                                      *sess._members[0].pool.items()]}
+    return {"tokens": [f.result() for f in futs],
+            "completed_by": stats.completed_by,
+            "reconstructed_steps": stats.reconstructed_steps,
+            "replicated": replicated,
+            "threads": len({job[4] for job in sess.issued})}
+
+
 def _worker(rank, root, trees):
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_test_mesh
@@ -311,6 +418,10 @@ def _worker(rank, root, trees):
                    "issued": issued,
                    **{arch: _serve(mesh, arch, trees[arch])
                       for arch in PLANS},
+                   "mesh_loops": {arch: _loops(arch, trees[arch], mesh)
+                                  for arch in PLANS},
+                   "stub": {"clean": _stub_serve(mesh),
+                            "late": _stub_serve(mesh, DELAY_S)},
                    "failures": {str(r): _failing_serve(mesh, trees[ARCH], r)
                                 for r in FAIL_RANKS}}
         finally:
@@ -347,23 +458,29 @@ def spawned(numpy_params, tmp_path_factory):
 @pytest.fixture(scope="module")
 def reference(spawned, numpy_params):
     """The JAX package's ``GenerationSession`` tokens for PROMPTS, by plan,
-    unsharded; served while the world runs."""
+    unsharded, and with the reference's linear stub (``"stub"``); served
+    while the world runs."""
     import jax.numpy as jnp
     import jax
     from repro.configs.base import get_config as jget_config
     from repro.serving import api as japi
     from repro.serving import generation as jgen
+    from test_generation import _linear_substrate as jax_stub
+    specs = {arch: dict(cfg=jget_config(arch, reduced=True),
+                        params=jax.tree.map(jnp.asarray, numpy_params[arch]))
+             for arch in PLANS}
+    params, fns = jax_stub()
+    specs["stub"] = dict(params=params, **fns)
     tokens = {}
-    for arch in PLANS:
+    for name, kw in specs.items():
         spec = jgen.GenerationSpec(
-            cfg=jget_config(arch, reduced=True),
-            params=jax.tree.map(jnp.asarray, numpy_params[arch]), k=K, r=R,
-            scheme="sum", batching=japi.BatchingPolicy(max_size=SLOTS),
-            max_seq_len=SEQ, max_new_tokens=NEW, straggle_ms=60_000.0)
+            k=K, r=R, scheme="sum",
+            batching=japi.BatchingPolicy(max_size=SLOTS), max_seq_len=SEQ,
+            max_new_tokens=NEW, straggle_ms=60_000.0, **kw)
         with japi.deploy_lm(spec, engine="threads") as sess:
             futs = [sess.submit(p) for p in PROMPTS]
             assert sess.wait_all(120.0)
-            tokens[arch] = [f.result(1.0) for f in futs]
+            tokens[name] = [f.result(1.0) for f in futs]
     return tokens
 
 
@@ -545,3 +662,53 @@ def test_every_rank_runs_the_same_jobs_in_order_on_one_thread(world):
     # every decode round of member 0's streams ran its late job
     assert decodes >= NEW - 1
     assert world[0]["straggler"]["reconstructed_steps"] >= decodes
+
+
+# --------------------------------------------------------------------------
+# (vi) the mesh's own loop
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", PLANS)
+def test_mesh_loop_equals_the_unsharded_loop(world, numpy_params, arch):
+    want = _loops(arch, numpy_params[arch])
+    assert all(len(t) == NEW for t in want)
+    for rank in world:
+        assert rank["mesh_loops"][arch] == want
+
+
+# --------------------------------------------------------------------------
+# (vii) a substrate override on the mesh
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("run", ["clean", "late"])
+def test_substrate_override_on_a_mesh_serves_the_unsharded_tokens(world,
+                                                                  run):
+    """Every rank the same tokens, completion mix and rebuilt steps, the
+    unsharded port's tokens; with member 0 late its steps are rebuilt, and
+    exactly (logits linear in the embeddings)."""
+    want = _stub_serve()["tokens"]
+    first = world[0]["stub"][run]
+    assert first["tokens"] == want
+    assert sum(first["completed_by"].values()) == len(PROMPTS) * NEW
+    assert (first["reconstructed_steps"] > 0) == (run == "late")
+    assert first["completed_by"].get("parity", 0) == \
+        first["reconstructed_steps"]
+    for rank in world[1:]:
+        assert rank["stub"][run] == first
+
+
+@pytest.mark.parametrize("run", ["clean", "late"])
+def test_substrate_override_on_a_mesh_serves_the_reference_tokens(
+        world, reference, run):
+    for rank in world:
+        assert rank["stub"][run]["tokens"] == reference["stub"]
+
+
+def test_substrate_override_on_a_mesh_is_replicated(world):
+    """The stub's parameters (its ``embed`` of 29 rows divides no axis, and
+    ``W`` is a name the rules do not know) and its pool are DTensors
+    replicated on both mesh axes; one device thread ran its jobs."""
+    for rank in world:
+        for run in ("clean", "late"):
+            out = rank["stub"][run]
+            assert out["replicated"] == {
+                name: [True, True] for name in ("embed", "W", "state")}
+            assert out["threads"] == 1

@@ -31,18 +31,35 @@ runs the phases in order, each on every rank:
 * ``fail`` — a failure planted on rank ``FAIL_RANK`` (member 0's first
   decode job raises after gathering its logits): every rank's
   ``wait_all`` must raise, naming that rank, within ``FAIL_S``.
-* ``deepseek`` — full-width deepseek-moe-16b (bf16, seed 0, ~17 GB of
-  weights a card at TP 2): ``mesh_vs_card`` over phase 10's first prompt
-  and its loop's tokens.  Its serve on several cards is refused
-  (``GenerationSpec``, ROADMAP.md C.4) until its tokens meet the loop's
-  there.
+* ``moe``, ``ssm``, ``hybrid`` — one plan of each family served on the
+  mesh (``family_serves``), each in fp32 and in bf16 with its own weights
+  from seed 0: phase 8's 8 requests, 4 new tokens each, clean and with
+  member 0 late (``chip_smoke.sharded_serves``), then the teacher-forced
+  logits over the first prompt and its loop's tokens on the mesh against
+  one card (``mesh_vs_card``).  In fp32, where rounding cannot move a
+  token, the serves are held to the one-card loop under the token rule
+  and the logits' p99 and median to ``CONTROL_TOL``; B7 and B8 on their
+  SIMT routes.  In bf16 the serves are held to the mesh's own loop
+  (``chip_smoke.lm_greedy`` on the mesh, summed as the serve sums), the
+  logits to one card's bf16 floor (phase 10's rule), and how many streams
+  leave the one-card loop outside the token rule is printed; every B7 and
+  B8 launch on the tensor-core routes.  ``moe``: full-width
+  deepseek-moe-16b (bf16 at 28 layers, ~17 GB of weights a card at TP 2;
+  fp32 at ``MOE_FP32_LAYERS`` of 28, the most a card holds beside the
+  one-card reference).  ``ssm``: full-width mamba2-780m, attention-free
+  (no B7 or B8 launch).  ``hybrid``: reduced jamba-1.5-large-398b (a
+  full-width period holds ~45 B parameters, more than a card).  A check
+  that fails ends its dtype's part and the run's "ok"; the other dtype and
+  the later phases go on.
 
 The parent process prints the cards' ``nvidia-smi`` name and power limit,
 builds the kernels once, then prints each phase's lines from every rank's
 log and checks that the ranks agree (tokens, completion mix, rebuilt
-steps).  The last line is one JSON object with every rank's results.  It
-exits non-zero on any mismatch, error, hang or timeout: nothing is caught
-and passed over.
+steps) serve by serve.  The last line is one JSON object: ``ok``, the
+cards, and rank 0's outcome of each family phase by dtype
+(``families``); every rank's results go to ``summary.json`` under
+``--out``.  It exits non-zero on any mismatch, unmet check, error, hang or
+timeout: a failed check is recorded, never passed over.
 
 Nothing may hang past its bound.  Each phase has a deadline
 (``DEADLINES``): 20 s before it a rank dumps PyTorch's NCCL flight
@@ -52,9 +69,9 @@ rank.  A collective that waits past the process-group timeout is ended by
 the NCCL watchdog, which dumps the flight recorder too.  Everything lands
 in ``--out`` (default ``build/sharded_serve/``): ``rank{r}.log``,
 ``rank{r}.json``, ``stacks_rank{r}.txt``, ``flight_{phase}_rank{r}.pkl``,
-``nccl_trace_rank_{r}`` (the watchdog's dumps) and ``nccl.*.log``
-(``NCCL_DEBUG=INFO``); the parent prints a summary of every flight
-recorder dump it finds.
+``nccl_trace_rank_{r}`` (the watchdog's dumps), ``nccl.*.log``
+(``NCCL_DEBUG=INFO``) and ``summary.json``; the parent prints a summary
+of every flight recorder dump it finds.
 
 ``--src DIR`` runs another tree's ``repro_torch`` (a parent commit unpacked
 with ``git archive``).  ``--device cpu`` runs the same phases on CPU
@@ -80,10 +97,10 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("control", "qwen", "step", "fail", "deepseek")
+PHASES = ("control", "qwen", "step", "fail", "moe", "ssm", "hybrid")
 # seconds a phase may take on a rank, start-up included in the first
 DEADLINES = {"control": 240, "qwen": 420, "step": 180, "fail": 180,
-             "deepseek": 600}
+             "moe": 900, "ssm": 600, "hybrid": 300}
 PG_TIMEOUT_S = 120.0
 # the control's fp32 logits, mesh against one card: the two differ only
 # in the order of their sums (the tensor-parallel all-reduces)
@@ -92,11 +109,21 @@ CONTROL_BATCH, CONTROL_STEPS = 4, 3
 FAIL_RANK, FAIL_S = 2, 60.0
 # after one rank fails, how long the others may take to end
 FAIL_GRACE_S = 30.0
-QWEN, DEEPSEEK = "qwen2-0.5b", "deepseek-moe-16b"
+QWEN = "qwen2-0.5b"
+# the plan served by each family's phase; jamba at full width holds ~45 B
+# parameters in one 8-layer period (90 GB in bf16), which no card holds
+# beside the one-card reference, so it runs reduced on the cards too
+FAMILIES = {"moe": "deepseek-moe-16b", "ssm": "mamba2-780m",
+            "hybrid": "jamba-1.5-large-398b"}
+# deepseek-moe-16b in fp32: its 28 layers take 67.5 GB, which no card holds
+# beside a rank's 34 GB shard; 14 layers take 34.5 GB
+MOE_FP32_LAYERS = 14
+# each family phase's two parts, in order
+DTYPES = ("float32", "bfloat16")
 MESH = (2, 2)
 # what a run writes into --out
 OUTPUTS = ("rank*.log", "rank*.json", "stacks_rank*.txt", "flight_*.pkl",
-           "nccl_trace_rank_*", "nccl.*.log")
+           "nccl_trace_rank_*", "nccl.*.log", "summary.json")
 
 
 # --------------------------------------------------------------------------
@@ -258,60 +285,216 @@ def qwen_phase(cs, mesh, dev, reduced):
             "b8_routes": droutes}
 
 
-def deepseek_phase(cs, mesh, dev, reduced):
-    """deepseek-moe-16b's teacher-forced logits on ``mesh`` against one
-    card's (``mesh_vs_card``), over phase 10's first prompt and its loop's
-    tokens.  Its serve on several cards is refused (ROADMAP.md C.4) until
-    its tokens meet the loop's on them."""
+def family_phase(cs, mesh, dev, reduced, family):
+    """``family``'s plan served on ``mesh`` in fp32 and in bf16
+    (``family_serves``), each with its own weights from seed 0.  A check
+    that fails ends its dtype's part, which the summary reports, and the
+    other goes on: every rank meets the same check on the same tokens and
+    logits, so every rank fails it alike."""
     from repro_torch.configs.base import get_config
+    base = get_config(FAMILIES[family],
+                      reduced=reduced or family == "hybrid")
+    return {dtype: family_dtype(cs, base.replace(dtype=dtype), mesh, dev,
+                                reduced) for dtype in DTYPES}
+
+
+def family_dtype(cs, cfg, mesh, dev, reduced):
+    """One dtype's part of a family phase: ``family_serves``' outcome, or
+    the check it failed."""
+    cut = None
+    if cfg.family == "moe" and cfg.dtype == "float32" and not reduced:
+        cut = f"{MOE_FP32_LAYERS} of {cfg.n_layers} layers"
+        cfg = cfg.replace(n_layers=MOE_FP32_LAYERS)
+    try:
+        out = {**family_serves(cs, cfg, mesh, dev, cut,
+                               hold_floor=not reduced), "ok": True}
+    except AssertionError as e:
+        cs.log(f"[{cfg.family}] {cfg.name} {cfg.dtype}: NOT met: {e}")
+        out = {"ok": False, "failed": str(e), "cut": cut}
+    free(dev)
+    return out
+
+
+def free(dev):
+    """What the last serve or comparison left, given back to the card."""
+    import torch
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def family_serves(cs, cfg, mesh, dev, cut, hold_floor=True):
+    """Phase 8's requests served on ``mesh`` (``chip_smoke.sharded_serves``:
+    clean, then member 0 late), SHARDED_NEW tokens each, then the mesh's
+    teacher-forced logits against one card's (``mesh_vs_card``).
+
+    In fp32 the serves' tokens are held to the one-card loop under the
+    token rule and the logits' p99 and median to CONTROL_TOL: rounding
+    cannot move them, so a miss is a fault.  In bf16 tensor parallelism
+    sums in another order than one card, and top-k routing turns that into
+    other experts, so the tokens are held to the mesh's own loop
+    (``chip_smoke.mesh_greedy``: the same sums as the serve) and
+    the logits to one card's bf16 floor; how many streams first leave the
+    one-card loop outside the token rule is printed, not held.  At reduced
+    size (``hold_floor`` False) the bf16 logits are printed beside the
+    floor, not held to it: two layers do not carry any rounding to the
+    same saturated spread as a full-depth model, so there the rule would
+    weigh the mesh's rounding against the floor's, not the model's answer
+    to either.  B7 and B8 on their SIMT routes in fp32, on the tensor-core
+    routes in bf16, none for an attention-free plan."""
+    import torch
+    from repro_torch.kernels import decode_attention as k_dattn
+    from repro_torch.kernels import flash_attention as k_flash
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    cfg = get_config(DEEPSEEK, reduced=reduced)
+    from repro_torch.serving.generation import place_inference_params
+    fp32, new = cfg.dtype == "float32", cs.SHARDED_NEW
+    tag = f"{cfg.name} {cfg.dtype}" + (f" ({cut})" if cut else "")
+    t0 = time.perf_counter()
     params = T.init_params(cfg, 0, device=dev)
-    prompt = cs.lm_prompts(cfg.vocab)[0]
-    loop = cs.lm_greedy(cfg, params, prompt)
-    return {"teacher_forced": mesh_vs_card(cs, cfg, params, mesh,
-                                           prompt + loop[0])}
+    prompts = cs.lm_prompts(cfg.vocab)
+    loops = [cs.lm_greedy(cfg, params, p, new=new) for p in prompts]
+    out = {"layers": cfg.n_layers, "cut": cut,
+           "params": T.param_count(params)}
+    cs.log(f"[sharded] {tag}: {out['params']} parameters from seed 0; the "
+           f"one-card loops over {len(prompts)} prompts in "
+           f"{time.perf_counter() - t0:.1f} s (init included)")
+    held, held_to = loops, "the one-card fp32 loop"
+    if not fp32:
+        t0 = time.perf_counter()
+        sparams = place_inference_params(params, mesh)
+        held = cs.mesh_greedy(cfg, sparams, mesh, prompts, new=new)
+        del sparams
+        free(dev)
+        held_to = "the mesh's own loop"
+        same = sum(a[0] == b[0] for a, b in zip(held, loops))
+        misses = token_misses(cs, [a[0] for a in held], loops)
+        out["mesh_loop"] = {"streams_equal_to_card_loop": same,
+                            "outside_rule_vs_card_loop": misses,
+                            "seconds": time.perf_counter() - t0}
+        cs.log(f"[sharded] {tag}: the mesh's own loop in "
+               f"{out['mesh_loop']['seconds']:.1f} s; {same} of "
+               f"{len(prompts)} streams token for token equal to the "
+               f"one-card loop; first differences outside the token rule "
+               f"(rid, step, gap to the best): {misses}")
+    for c in [*ops.counters().values(), *k_flash.route_launches.values(),
+              *k_dattn.route_launches.values()]:
+        c.reset()
+    out.update(cs.sharded_serves(cfg, params, mesh, prompts, held,
+                                 any_rank=True, held_to=held_to))
+    out["held_to"] = held_to
+    launches = {n: c.value for n, c in ops.counters().items() if c.value}
+    routes = {n: c.value for n, c in k_flash.route_launches.items()}
+    droutes = {n: c.value for n, c in k_dattn.route_launches.items()}
+    attends = any(s["mixer"] == "attn" for s in T.layer_plan(cfg))
+    b7, b8 = ("simt", "simt") if fp32 else ("wgmma", "mma")
+    n7, n8 = (launches.get(n, 0) for n in ("flash_attention",
+                                           "decode_attention"))
+    # the routes' counts sum to the launches: all on b7 / b8, or none
+    if dev == "cuda" and (routes[b7] != n7 or droutes[b8] != n8 or
+                          attends != bool(n7) or attends != bool(n8)):
+        raise AssertionError(f"{tag}: launches {launches}, B7 by route "
+                             f"{routes}, B8 by route {droutes}: not all on "
+                             f"the {b7} / {b8} routes"
+                             + ("" if attends else ", or some launched by "
+                                "an attention-free plan"))
+    if not fp32:
+        out["outside_rule_vs_card_loop"] = token_misses(
+            cs, out["clean"]["tokens"], loops)
+    cs.log(f"[sharded] {tag}: tokens held to {held_to}; launches "
+           f"{launches}, B7 by route {routes}, B8 by route {droutes}"
+           + ("" if fp32 else
+              f"; the clean serve's first differences from the one-card "
+              f"loop outside the token rule (rid, step, gap to the best), "
+              f"printed and not held: {out['outside_rule_vs_card_loop']}"))
+    out.update(launches=launches, b7_routes=routes, b8_routes=droutes)
+    free(dev)
+    out["teacher_forced"] = mesh_vs_card(
+        cs, cfg, params, mesh, prompts[0] + loops[0][0],
+        tol=CONTROL_TOL if fp32 else None, hold=fp32 or hold_floor)
+    return out
 
 
-def mesh_vs_card(cs, cfg, params, mesh, tokens):
+def token_misses(cs, tokens, loops):
+    """(rid, step, the served token's gap to the loop's best, None beyond
+    its top 8) of each stream whose first token unequal to the loop's
+    falls outside the token rule (``chip_smoke.check_tokens`` with
+    ``any_rank``); the later tokens follow another history."""
+    out = []
+    for rid, (got, (toks, _, _, ranked)) in enumerate(zip(tokens, loops)):
+        t = next((t for t, (a, b) in enumerate(zip(got, toks)) if a != b),
+                 None)
+        if t is not None:
+            gap = ranked[t].get(got[t])
+            if gap is None or gap >= cs.LM_GAP_TOL:
+                out.append((rid, t, gap))
+    return out
+
+
+def mesh_vs_card(cs, cfg, params, mesh, tokens, tol=None, hold=True):
     """Teacher-forced logits of ``tokens`` on ``mesh`` (the parameters at
     the inference layout, under the serving rules) against one card's
     kernel path, per position (max, p99, median of the max |logit
-    difference|), beside the one card's own noise floor (its torch backend
-    in two summation orders, ``chip_smoke.backends_per_position``), held to
-    phase 10's rule (``chip_smoke.within_floor``)."""
+    difference|).  With ``tol`` (fp32) p99 and median are held to it.
+    Otherwise they are held beside one card's own noise floor to phase
+    10's rule (``chip_smoke.within_floor``): for a plan that attends, its
+    torch backend in two summation orders
+    (``chip_smoke.backends_per_position``); for an attention-free plan,
+    phase 10's SSM floor, the bf16 forward against an fp32 copy of its
+    weights.  ``hold`` False: the outcome is printed, not raised."""
     import torch
+    from repro_torch.convert import tree_map
     from repro_torch.distributed import logical
     from repro_torch.models import transformer as T
     from repro_torch.serving.generation import (place_inference_params,
                                                 serving_rules)
-    from torch.distributed.tensor import DTensor
     toks = torch.tensor([tokens], device=cs.DEV)
-    _, (floor, _), scale, card = cs.backends_per_position(cfg, params, toks)
+    base = None
+    if tol is None and any(s["mixer"] == "attn" for s in T.layer_plan(cfg)):
+        _, (floor, _), scale, card = cs.backends_per_position(cfg, params,
+                                                              toks)
+        base = cs.pct(floor)
+        what = "one card's floor (torch backend, 128-key blocks vs default)"
+    else:
+        with torch.inference_mode():
+            card = T.forward(cfg, params, tokens=toks)[0][0]
+            scale = float(card.abs().max())
+            if tol is None:
+                p32 = tree_map(lambda x: x.float(), params)
+                base = cs.pct((card - T.forward(
+                    cfg.replace(dtype="float32"), p32,
+                    tokens=toks)[0][0]).abs().amax(-1))
+                del p32
+                what = ("one card's floor (the bf16 forward vs an fp32 "
+                        "copy of its weights, phase 10's SSM floor)")
     sparams = place_inference_params(params, mesh)
     with logical.logical_rules(*serving_rules(mesh)), \
             logical.implicit_replication(), torch.no_grad():
-        logits = T.forward(cfg, sparams, tokens=toks)[0]
-    logits = logits.full_tensor() if isinstance(logits, DTensor) else logits
+        logits = cs.whole(T.forward(cfg, sparams, tokens=toks)[0])
     del sparams
     d = (logits[0].float() - card.float()).abs().amax(-1)
     agree = float((logits[0].argmax(-1) == card.argmax(-1)).float().mean())
-    err, base = cs.pct(d), cs.pct(floor)
-    ok = cs.within_floor(err, base)
-    cs.log(f"[sharded] {cfg.name} teacher-forced over {toks.shape[1]} "
-           f"tokens, per-position max |logit err| (max, p99, median): the "
-           f"{tuple(mesh.shape)} mesh vs one card's kernel path "
-           f"{tuple(round(x, 4) for x in err)}, argmax equal at "
-           f"{agree:.2%}; one card's floor (torch backend, 128-key blocks vs "
-           f"default) {tuple(round(x, 4) for x in base)}; max |logit| "
-           f"{scale:.3f}; phase 10's rule (p99 and median at most "
-           f"{cs.MOE_FLOOR_FACTOR:g}x the floor's or {cs.LM_LOGIT_TOL:g}): "
-           f"{'met' if ok else 'NOT met'}")
-    if not ok:
-        raise AssertionError(f"{cfg.name}: the mesh's logits {err} against "
-                             f"one card's, floor {base}")
-    return {"tokens": toks.shape[1], "err": err, "floor": base,
-            "argmax_agree": agree, "max_abs_logit": scale}
+    err = cs.pct(d)
+    if tol is not None:
+        ok = err[1] <= tol and err[2] <= tol
+        rule = f"p99 and median at most {tol:g}"
+    else:
+        ok = cs.within_floor(err, base)
+        rule = (f"{what} {tuple(round(x, 4) for x in base)}; phase 10's "
+                f"rule (p99 and median at most {cs.MOE_FLOOR_FACTOR:g}x "
+                f"the floor's or {cs.LM_LOGIT_TOL:g})")
+    cs.log(f"[sharded] {cfg.name} {cfg.dtype} teacher-forced over "
+           f"{toks.shape[1]} tokens, per-position max |logit err| (max, "
+           f"p99, median): the {tuple(mesh.shape)} mesh vs one card's kernel "
+           f"path {tuple(float(f'{x:.4g}') for x in err)}, argmax equal at "
+           f"{agree:.2%}; max |logit| {scale:.3f}; {rule}: "
+           f"{'met' if ok else 'NOT met'}{'' if hold else ' (not held)'}")
+    if hold and not ok:
+        raise AssertionError(f"{cfg.name} {cfg.dtype}: the mesh's logits "
+                             f"{err} against one card's ({rule})")
+    return {"tokens": toks.shape[1], "err": err, "floor": base, "tol": tol,
+            "argmax_agree": agree, "max_abs_logit": scale, "met": ok,
+            "held": hold}
 
 
 def step_phase(cs, mesh, dev):
@@ -419,7 +602,9 @@ def rank_main(rank, world, args, port):
         if args.device == "cuda":
             torch.cuda.set_device(rank)
             kw["device_id"] = torch.device("cuda", rank)
-            torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 control
+            # the fp32 control and serves: no TF32 in a matmul or a conv
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         dist.init_process_group(
             "nccl" if args.device == "cuda" else "gloo",
             init_method=f"tcp://localhost:{port}", rank=rank,
@@ -441,7 +626,7 @@ def rank_main(rank, world, args, port):
             elif phase == "fail":
                 res = fail_phase(cs, mesh, args.device, reduced)
             else:
-                res = deepseek_phase(cs, mesh, args.device, reduced)
+                res = family_phase(cs, mesh, args.device, reduced, phase)
             res["seconds"] = time.perf_counter() - t0
             watch.stop()
             cs.log(f"[time] {phase}: {res['seconds']:.1f} s")
@@ -498,17 +683,57 @@ def summarize_flight(path):
 AGREE = ("tokens", "completed_by", "reconstructed_steps", "n")
 
 
+def serves_of(phases):
+    """(name, the keys down to its two serves) of every served plan."""
+    return [("qwen", ("qwen",))] * ("qwen" in phases) + [
+        (f"{p} {dt}", (p, dt)) for p in phases if p in FAMILIES
+        for dt in DTYPES]
+
+
+def at(res, keys):
+    for key in keys:
+        res = res.get(key, {})
+    return res
+
+
 def check_agreement(results, phases):
-    """The ranks' tokens, completion mixes and rebuilt steps agree."""
+    """The ranks' tokens, completion mixes and rebuilt steps agree, serve
+    by serve."""
     def pick(serve):
         return {k: serve[k] for k in AGREE if k in serve}
-    if "qwen" not in phases:
-        return []
-    first = results[0]["qwen"]
-    return [f"qwen {part}: rank {r} differs from rank 0"
+    return [f"{name} {part}: rank {r} differs from rank 0"
+            for name, keys in serves_of(phases)
             for r, res in enumerate(results[1:], 1)
             for part in ("clean", "straggler")
-            if pick(res["qwen"][part]) != pick(first[part])]
+            if pick(at(res, keys).get(part, {})) !=
+            pick(at(results[0], keys).get(part, {}))]
+
+
+def family_summary(first, phases):
+    """Rank 0's outcome of each family phase, by dtype."""
+    out = {}
+    for p in phases:
+        if p not in FAMILIES:
+            continue
+        out[p] = {}
+        for dt in DTYPES:
+            res = at(first, (p, dt))
+            tf = res.get("teacher_forced", {})
+            out[p][dt] = {
+                "ok": res.get("ok", False), "failed": res.get("failed"),
+                "arch": FAMILIES[p], "layers": res.get("layers"),
+                "cut": res.get("cut"), "held_to": res.get("held_to"),
+                "clean": {k: res.get("clean", {}).get(k) for k in (
+                    "completed_by", "p50_ms")},
+                "straggler_reconstructed_steps": res.get(
+                    "straggler", {}).get("reconstructed_steps"),
+                "teacher_forced_err": tf.get("err"),
+                "teacher_forced_floor": tf.get("floor"),
+                "teacher_forced_tol": tf.get("tol"),
+                "outside_rule_vs_card_loop": res.get(
+                    "outside_rule_vs_card_loop"),
+                "launches": res.get("launches")}
+    return out
 
 
 def main(argv=None):
@@ -520,7 +745,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     world = math.prod(MESH)
-    phases = args.phases.split(",")
+    phases, cards = args.phases.split(","), []
     if any(p not in PHASES for p in phases):
         ap.error(f"phases are {PHASES}")
     if args.device == "cpu" and "step" in phases:
@@ -538,10 +763,11 @@ def main(argv=None):
             print(f"needs {world} CUDA devices, have "
                   f"{torch.cuda.device_count()}", flush=True)
             return 2
-        print(subprocess.run(
+        cards = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip(), flush=True)
+            check=True).stdout.strip().splitlines()
+        print("\n".join(cards), flush=True)
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
         _build.library()
@@ -605,15 +831,24 @@ def main(argv=None):
             print(f"[sharded_serve] rank {r}'s thread stacks "
                   f"({stack}):\n" + stack.read_text()[-6000:], flush=True)
     bad = [] if failed else check_agreement(results, phases)
+    families = family_summary(results[0], phases)
+    unmet = [f"{p} {dt}" for p, by in families.items()
+             for dt, res in by.items() if not res["ok"]]
     for res in results:
         res.pop("error", None)
     for res in results[1:]:         # equal to rank 0's where it matters
-        res.get("qwen", {}).get("clean", {}).pop("tokens", None)
-    ok = not failed and not bad
+        for _, keys in serves_of(phases):
+            for part in ("clean", "straggler"):
+                at(res, keys).get(part, {}).pop("tokens", None)
+    ok = not failed and not bad and not unmet
     print(f"[sharded_serve] {wall:.1f} s; ranks hung {hung}, failed "
-          f"{sorted(set(failed))}; disagreements {bad}", flush=True)
-    print(json.dumps({"ok": ok, "mesh": MESH, "device": args.device,
-                      "wall_s": wall, "ranks": results}), flush=True)
+          f"{sorted(set(failed))}; disagreements {bad}; checks not met "
+          f"{unmet}", flush=True)
+    last = {"ok": ok, "mesh": MESH, "device": args.device, "cards": cards,
+            "wall_s": wall, "families": families}
+    (out / "summary.json").write_text(json.dumps({**last,
+                                                  "ranks": results}))
+    print(json.dumps(last), flush=True)
     return 0 if ok else 1
 
 
