@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
 1. device    — print the card's name and power limit, build the CUDA kernels
                from ``src/repro_torch/csrc`` (``nvcc``, ``sm_90a``);
 2. kernels   — hold each kernel against its plain PyTorch version on the card
-               (test sweeps in fp32 and bf16, B1's, B2's and B4's also
-               through the bounds-checked build, then the main-path shapes;
+               (test sweeps in fp32 and bf16, B1's, B2's, B4's, B7's and
+               B8's also through the bounds-checked build, then the
+               main-path shapes;
                B1, B3 and B4 also as their op and scheme calls, each one
                launch and no other device operation) and time it
                beside the plain version, one PyTorch library call for the
@@ -107,18 +108,32 @@ Phases, in order; any failure exits non-zero:
                jamba-1.5-large-398b (fp32) served the same way, each
                held to its own one-card loop (jamba's B7 and B8 on their
                SIMT routes, none for mamba2).
+15. plans    — with phase 14's models freed: the four LM plans that no
+               earlier phase runs, full width, bf16, seed 0, each served
+               as phase 8 serves qwen2-0.5b (clean and member 0 late,
+               tokens held to the plan's own uncoded loop under phase 8's
+               token rule), its kernel-path logits against the torch
+               backend's beside that backend's 128-key floor, every B7 and
+               B8 launch on the tensor-core routes, the decode step's host
+               and device time and host syncs: smollm-135m (B7/B8 at 9
+               heads over 3, hd 64), olmo-1b (16 over 16, hd 128,
+               non-parametric LayerNorm), qwen3-4b (32 over 8, hd 128,
+               qk-norm) and qwen3-moe-235b-a22b at 2 of its 94 layers (a
+               depth cut; 64 over 4 at hd 128, 128 experts top-8).
 
 ``python3 chip_smoke.py --distil-lrs 1e-4,1e-3`` runs phase 9's
-distillation alone at each learning rate, and ``--sharded-only`` phase 14
-alone; neither prints a result line.
+distillation alone at each learning rate, ``--sharded-only`` phase 14
+alone and ``--plans-only`` phase 15 alone (each after phase 1); none
+prints a result line.
 
-The launch counters are zeroed before each of the nine paths (phases 3-4,
+The launch counters are zeroed before each of the ten paths (phases 3-4,
 the coded MLP serving path; phases 5-7, the scheme registry's path; phase 8,
 coded LM serving; phase 9, LM parity training and serving the trained model;
 phase 10, MoE / SSM / hybrid LM serving; phase 11, cross-attention and
 encoder-decoder LM serving; phase 12, the launch steps on a device mesh;
-phase 13, the example twins; phase 14, sharded LM serving) and
-read after it; every kernel of a path must have run on it.
+phase 13, the example twins; phase 14, sharded LM serving; phase 15, the
+four plans' LM serving) and read after it; every kernel of a path must
+have run on it.
 Launches made only to compare a kernel path with its plain twin are not
 counted.  The last two lines of
 standard output are a ``{"kernels": [...]}`` JSON object and the
@@ -431,12 +446,17 @@ def sweep_kernels():
     # dtypes, plus ragged edges, windows and one-token prompts (B7), and
     # per-row pos, a pos past the cache and rep up to 16 (B8).  B7 also at
     # each shape its paths give it: the longest LM prompt (910, a ragged
-    # last key tile) at qwen2-0.5b's heads and at deepseek-moe-16b's (16
-    # over 16, hd 128: phase 10), phase 9's teacher forwards (1024 tokens,
-    # eight full tiles) and launch/serve's reduced qwen2-0.5b (fp32 teacher
-    # batch of 4 and single queries, 32 tokens; the twins' serve_lm prompts
-    # of 1-5 tokens); B8 also on a full serving pool at each model's heads
-    # and on serve_lm's pool of two 32-slot rows
+    # last key tile) at qwen2-0.5b's heads, at deepseek-moe-16b's (16
+    # over 16, hd 128: phase 10) and at phase 15's smollm-135m's (9 over 3,
+    # hd 64: rep 3) and qwen3-moe-235b-a22b's (64 over 4, hd 128: rep 16),
+    # phase 9's teacher forwards (1024 tokens, eight full tiles) and
+    # launch/serve's reduced qwen2-0.5b (fp32 teacher batch of 4 and single
+    # queries, 32 tokens; the twins' serve_lm prompts of 1-5 tokens); B8
+    # also on a full serving pool at each model's heads and on serve_lm's
+    # pool of two 32-slot rows.  Every case also through the checked build
+    # (a REPRO_CHECK trap there fails the CUDA context, and with it this
+    # run)
+    n_attn = 0
     for B, Sq, Sk, H, KV, hd, causal, window in [
             (2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 4, 4, 64, True, 64),
             (2, 100, 100, 2, 1, 32, False, 0), (1, 128, 128, 8, 2, 128, True, 0),
@@ -444,6 +464,8 @@ def sweep_kernels():
             (1, 1, 1, 14, 2, 64, True, 0), (2, 129, 129, 14, 2, 128, True, 0),
             (1, 910, 910, 14, 2, 64, True, 0),
             (1, 910, 910, 16, 16, 128, True, 0),
+            (1, 910, 910, 9, 3, 64, True, 0),
+            (1, 910, 910, 64, 4, 128, True, 0),
             (1, 1024, 1024, 14, 2, 64, True, 0),
             (4, 32, 32, 4, 2, 64, True, 0), (1, 32, 32, 4, 2, 64, True, 0),
             (1, 1, 1, 4, 2, 64, True, 0), (1, 3, 3, 4, 2, 64, True, 0),
@@ -455,14 +477,18 @@ def sweep_kernels():
             kw = dict(causal=causal, window=window)
             route = k_flash.route_launches[k_flash.ROUTES[dt]]
             before = route.value
-            check_close(f"flash_attention {B,Sq,Sk,H,KV,hd,causal,window,dt}",
-                        ops.flash_attention_op(q, k, v, **kw),
-                        ref.flash_attention_ref(q, k, v, **kw), attn_tol(dt),
-                        0.0)
+            label = f"flash_attention {B,Sq,Sk,H,KV,hd,causal,window,dt}"
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            check_close(label, ops.flash_attention_op(q, k, v, **kw), want,
+                        attn_tol(dt), 0.0)
             if route.value != before + 1:
                 raise AssertionError(f"flash_attention {dt}: not on the "
                                      f"{k_flash.ROUTES[dt]} route")
+            check_close(f"{label} checked build",
+                        k_flash.flash_attention(q, k, v, checked=True, **kw),
+                        want, attn_tol(dt), 0.0)
             n += 1
+            n_attn += 1
     for B, S, H, KV, hd, pos in [
             (2, 512, 4, 2, 64, 100), (1, 1024, 8, 1, 32, 1023),
             (3, 256, 2, 2, 64, 0), (2, 384, 4, 4, 128, 200),
@@ -470,6 +496,7 @@ def sweep_kernels():
             (3, 16, 4, 2, 64, [2, 9, 5]), (2, 100, 32, 2, 128, [99, 5000]),
             (4, 1280, 14, 2, 64, [300, 1279, 5, 700]),
             (4, 1280, 16, 16, 128, B8_POS),
+            (4, 1280, 9, 3, 64, B8_POS), (4, 1280, 64, 4, 128, B8_POS),
             (1, 8192, 16, 1, 128, 8191), (1, 8, 4, 2, 32, 0),
             (2, 32, 4, 2, 64, [3, 9]), (2, 32, 4, 2, 64, [31, 0])]:
         for dt in (torch.float32, torch.bfloat16):
@@ -478,15 +505,25 @@ def sweep_kernels():
             vc = randn(gen, (B, S, KV, hd), dt)
             route = k_dattn.route_launches[k_dattn.ROUTES[dt]]
             before = route.value
-            check_close(f"decode_attention {B,S,H,KV,hd,pos,dt}",
-                        ops.decode_attention_op(q, kc, vc, pos),
-                        ref.decode_attention_ref(q, kc, vc, pos),
+            label = f"decode_attention {B,S,H,KV,hd,pos,dt}"
+            want = ref.decode_attention_ref(q, kc, vc, pos)
+            check_close(label, ops.decode_attention_op(q, kc, vc, pos), want,
                         attn_tol(dt), 0.0)
             if route.value != before + 1:
                 raise AssertionError(f"decode_attention {dt}: not on the "
                                      f"{k_dattn.ROUTES[dt]} route")
+            pos_d = torch.tensor(pos, dtype=torch.int32, device=DEV)
+            check_close(f"{label} checked build",
+                        k_dattn.decode_attention(q, kc, vc, pos_d,
+                                                 checked=True),
+                        want, attn_tol(dt), 0.0)
             n += 1
+            n_attn += 1
     torch.cuda.synchronize()
+    log(f"[kernels] flash_attention and decode_attention: {n_attn} sweep "
+        f"cases (rep 3 at hd 64 and rep 16 at hd 128 among them), each also "
+        f"through the checked build (REPRO_CHECK on the q, K/V and output "
+        f"indices): no trap")
     return n
 
 
@@ -749,13 +786,15 @@ B8_POS = [300, 1279, 517, 1031]
 
 def attention_rows(gen):
     """B7 and B8 at the shapes the LM paths give them, in bf16: B7 on the
-    longest prompt of phases 8 and 10 (qwen2-0.5b's 14 heads over 2 at
-    hd 64, deepseek-moe-16b's 16 over 16 at hd 128), B8 on a full serving
-    step's cache pool with mixed per-row positions at each model's heads.
-    The qwen2 rows are the kernels' JSON rows; the rows at the other
-    models' heads (deepseek-moe-16b; phase 11's llama-3.2-vision-11b, 32
-    heads over 8 at hd 128, and seamless-m4t-medium, 16 over 16 at hd 64)
-    ride in them under the keys of HEAD_ROWS."""
+    longest prompt of phases 8, 10 and 15 (qwen2-0.5b's 14 heads over 2 at
+    hd 64, deepseek-moe-16b's 16 over 16 at hd 128, smollm-135m's 9 over 3
+    at hd 64, qwen3-moe-235b-a22b's 64 over 4 at hd 128), B8 on a full
+    serving step's cache pool with mixed per-row positions at each model's
+    heads.  The qwen2 rows are the kernels' JSON rows; the rows at the
+    other models' heads (deepseek-moe-16b; phase 11's llama-3.2-vision-11b,
+    32 heads over 8 at hd 128, and seamless-m4t-medium, 16 over 16 at hd
+    64, each on its path's longest prompt and pool; phase 15's smollm-135m
+    and qwen3-moe-235b-a22b) ride in them under the keys of HEAD_ROWS."""
     rows = {}
     P = max(len(p) for p in lm_prompts(get_config(LM_ARCH).vocab))
     rows["flash_attention"] = b7_row(gen, P, 14, 2, 64)
@@ -776,23 +815,33 @@ def attention_rows(gen):
     log(f"[kernels] decode_attention device ms by cluster size {by_cluster}; "
         f"with pos 0 in every row (one slot) "
         f"{fmt_ms(rows['decode_attention']['one_slot_device_ms'])}")
-    moe = get_config(MOE_ARCH)
-    H, KV, hd = moe.n_heads, moe.n_kv_heads, moe.resolved_head_dim
-    rows["flash_attention"]["deepseek"] = b7_row(gen, P, H, KV, hd)
-    rows["decode_attention"]["deepseek"] = b8_row(gen, H, KV, hd,
-                                                  B8_POS)[0]
-    # phase 11's heads, each on its path's longest prompt and its pool
-    for key, arch in HEAD_ROWS[1:]:
+    for key, arch in HEAD_ROWS:
         cfg = get_config(arch)
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        longest = max(map(len, cross_prompts(cfg)))
+        if arch in CROSS_SEQ:
+            # phase 11's heads, each on its path's longest prompt and pool
+            longest, pos, S = (max(map(len, cross_prompts(cfg))),
+                               CROSS_B8_POS[arch], CROSS_SEQ[arch])
+        else:
+            # phases 10 and 15 serve phase 8's prompts into its pools
+            longest, pos, S = P, B8_POS, LM_SEQ
         rows["flash_attention"][key] = b7_row(gen, longest, H, KV, hd)
-        rows["decode_attention"][key] = b8_row(
-            gen, H, KV, hd, CROSS_B8_POS[arch], CROSS_SEQ[arch])[0]
+        rows["decode_attention"][key] = b8_row(gen, H, KV, hd, pos, S)[0]
     log("[kernels] decode_attention: 20 calls of the wrapper issue 20 "
         "launches of decode_cluster_kernel and no other device operation "
         "(at the heads of qwen2-0.5b, "
         + ", ".join(arch for _, arch in HEAD_ROWS) + ")")
+    for arch, key in PLAN_SHARED_ROWS.items():
+        cfg, other = get_config(arch), get_config(dict(HEAD_ROWS)[key])
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+        if heads != (other.n_heads, other.n_kv_heads,
+                     other.resolved_head_dim):
+            raise AssertionError(f"{arch}'s heads {heads} are not those of "
+                                 f"the {key} row ({other.name})")
+        log(f"[kernels] {arch} ({heads[0]} heads over {heads[1]} at hd "
+            f"{heads[2]}) has no row of its own: B7 and B8 at its heads are "
+            f"the {key} row's ({other.name}: the same heads, prompt length "
+            f"and pool)")
     for (dt, hd_), (size, capacity) in sorted(
             k_dattn.cluster_decisions().items(), key=str):
         log(f"[kernels] decode_attention cluster decision ({dt}, hd {hd_}): "
@@ -2399,9 +2448,10 @@ def step_costs(tag, cfg, params, prompts, uncounted, seq=LM_SEQ,
                 prefill_ms=pre_ms, prefill_tokens=len(longest))
 
 
-def full_width(tag, arch):
-    """A full-width model from seed 0: (cfg, params, a line's facts)."""
-    cfg = get_config(arch)
+def full_width(tag, arch, **cut):
+    """A full-width model from seed 0, its config's fields replaced by
+    ``cut`` (a depth cut): (cfg, params, a line's facts)."""
+    cfg = get_config(arch).replace(**cut)
     t0 = time.perf_counter()
     params = T.init_params(cfg, 0, device=DEV)
     torch.cuda.synchronize()
@@ -2416,64 +2466,89 @@ def full_width(tag, arch):
     return cfg, params, info
 
 
-def phase_moe(uncounted):
-    cfg, params, info = full_width("moe", MOE_ARCH)
-    log(f"[moe] {cfg.n_layers} layers, all MoE: {cfg.n_experts} routed "
-        f"experts top-{cfg.moe_top_k} and {cfg.n_shared_experts} shared, "
-        f"moe_d_ff {cfg.moe_d_ff}; d_model {cfg.d_model}, {cfg.n_heads} "
-        f"heads over {cfg.n_kv_heads} KV heads at head_dim "
-        f"{cfg.resolved_head_dim}; vocab {cfg.vocab}, untied head")
+def plan_logits_ok(cfg, err, floor):
+    """The teacher-forced rule: a dense plan's max within LM_LOGIT_TOL, or
+    the floor rule (``within_floor``) where the torch backend's 128-key
+    floor itself passes LM_LOGIT_TOL; a MoE plan (router near-ties) the
+    floor rule."""
+    if cfg.n_experts:
+        return within_floor(err, floor)
+    return err[0] <= LM_LOGIT_TOL or (floor[0] > LM_LOGIT_TOL and
+                                       within_floor(err, floor))
+
+
+def served_plan(tag, arch, uncounted, **cut):
+    """A full-width plan (its config's fields replaced by ``cut``, a depth
+    cut) served as phase 8 serves qwen2-0.5b (phases 10 and 15): the
+    uncoded loop and the teacher-forced comparison (uncounted), the clean
+    and late serves, the decode step's costs, and B7 and B8 by route, every
+    launch on the tensor-core routes."""
+    t0 = time.perf_counter()
+    cfg, params, info = full_width(tag, arch, **cut)
+    full = get_config(arch)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    log(f"[{tag}] {cfg.n_layers} layers"
+        + (f" of {full.n_layers} (a depth cut: the full plan fits no card;"
+           f" every layer at full width)" if cut else "")
+        + f", d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} KV heads (rep {rep}) at head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}"
+        + (f", {cfg.n_experts} routed experts top-{cfg.moe_top_k} "
+           f"(moe_d_ff {cfg.moe_d_ff}, {cfg.n_shared_experts} shared)"
+           if cfg.n_experts else "")
+        + f"; qk_norm {cfg.qk_norm}, non-parametric LayerNorm "
+        f"{cfg.nonparametric_ln}, tied embeddings {cfg.tie_embeddings}; "
+        f"vocab {cfg.vocab}")
     prompts = lm_prompts(cfg.vocab)
     before_routes = route_counts()
-    # comparisons first, uncounted
-    t0 = time.perf_counter()
     with uncounted():
         loops = [lm_greedy(cfg, params, p) for p in prompts]
         toks = torch.tensor([prompts[0] + loops[0][0]], device=DEV)
         (d, agree), (floor, floor_agree), scale, _ = backends_per_position(
             cfg, params, toks)
     err, base = pct(d), pct(floor)
-    log(f"[moe] uncoded greedy loop over {len(prompts)} prompts of "
-        f"{sorted(map(len, prompts))} tokens in "
-        f"{time.perf_counter() - t0:.2f} s; teacher-forced forward over "
-        f"{toks.shape[1]} tokens, per-position max |logit err| (max, p99, "
-        f"median): kernel path vs torch backend "
-        f"{tuple(round(x, 4) for x in err)}, argmax equal at "
-        f"{agree:.2%} of positions; torch backend with 128-key blocks vs "
-        f"torch (the same attention summed in another order: the noise "
-        f"floor) {tuple(round(x, 4) for x in base)}, argmax equal at "
-        f"{floor_agree:.2%}; position 0 (attends to itself only) "
-        f"{float(d[0]):.4f}; max |logit| {scale:.3f}; tolerance: p99 and "
-        f"median at most {MOE_FLOOR_FACTOR:g}x the floor's or "
-        f"{LM_LOGIT_TOL:g}")
-    if not all(e <= max(MOE_FLOOR_FACTOR * f, LM_LOGIT_TOL)
-               for e, f in zip(err[1:], base[1:])):
-        raise AssertionError(f"moe: kernel logits vs torch backend {err}, "
+    ok = plan_logits_ok(cfg, err, base)
+    rule = (f"p99 and median at most {MOE_FLOOR_FACTOR:g}x the floor's or "
+            f"{LM_LOGIT_TOL:g}" if cfg.n_experts else
+            f"max at most {LM_LOGIT_TOL:g}, or where the floor's max passes "
+            f"it, p99 and median at most {MOE_FLOOR_FACTOR:g}x the floor's")
+    log(f"[{tag}] uncoded greedy loop over {len(prompts)} prompts of "
+        f"{sorted(map(len, prompts))} tokens (smallest top-2 gap "
+        f"{min(min(loop[1]) for loop in loops):.4f}); teacher-forced "
+        f"forward over {toks.shape[1]} tokens, per-position max |logit err| "
+        f"(max, p99, median): kernel path vs torch backend "
+        f"{tuple(round(x, 4) for x in err)}, argmax equal at {agree:.2%}; "
+        f"torch backend with 128-key blocks vs torch (the noise floor) "
+        f"{tuple(round(x, 4) for x in base)}, argmax equal at "
+        f"{floor_agree:.2%}; max |logit| {scale:.3f}; rule: {rule}: "
+        f"{'met' if ok else 'NOT met'}")
+    if not ok:
+        raise AssertionError(f"{tag}: kernel logits vs torch backend {err}, "
                              f"noise floor {base}")
-    served = served_lm("moe", cfg, params, prompts, loops)
-    costs = step_costs("moe", cfg, params, prompts, uncounted)
+    served = served_lm(tag, cfg, params, prompts, loops)
+    costs = step_costs(tag, cfg, params, prompts, uncounted)
     flash, dec = route_delta(before_routes)
+    log(f"[{tag}] B7 by route {flash}, B8 by route {dec} (comparison and "
+        f"measurement runs included); every B7 launch on wgmma and every "
+        f"B8 launch on mma required, each > 0")
     if flash != {"wgmma": sum(flash.values()), "simt": 0} or \
             not flash["wgmma"]:
-        raise AssertionError(f"moe: B7 launches by route {flash}")
+        raise AssertionError(f"{tag}: B7 launches by route {flash}")
     if dec != {"mma": sum(dec.values()), "simt": 0} or not dec["mma"]:
-        raise AssertionError(f"moe: B8 launches by route {dec}")
-    path = {name: counts()[name] - uncounted.n[name]
-            for name in ("flash_attention", "decode_attention")}
-    log(f"[moe] B7 and B8 at {cfg.n_heads} heads over {cfg.n_kv_heads} "
-        f"(rep {cfg.n_heads // cfg.n_kv_heads}), head_dim "
-        f"{cfg.resolved_head_dim}: "
-        f"{path['flash_attention']} and {path['decode_attention']} launches "
-        f"on the path so far; every launch of the deepseek runs on the "
-        f"tensor-core routes (comparison runs included: B7 {flash}, B8 "
-        f"{dec})")
+        raise AssertionError(f"{tag}: B8 launches by route {dec}")
     del params
+    gc.collect()
     torch.cuda.empty_cache()
-    return dict(info, logit_err=dict(zip(("max", "p99", "median"), err),
-                                     argmax_agree=agree),
+    seconds = time.perf_counter() - t0
+    log(f"[{tag}] {seconds:.1f} s")
+    return dict(info, layers=cfg.n_layers, full_layers=full.n_layers,
+                heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+                logit_err=dict(zip(("max", "p99", "median"), err),
+                               argmax_agree=agree),
                 logit_noise_floor=dict(zip(("max", "p99", "median"), base),
                                        argmax_agree=floor_agree),
-                flash_routes=flash, decode_routes=dec, **served, **costs)
+                flash_routes=flash, decode_routes=dec, seconds=seconds,
+                **served, **costs)
 
 
 def phase_ssm(uncounted):
@@ -2584,7 +2659,7 @@ def phase10():
         c.reset()
     torch.cuda.reset_peak_memory_stats()
     uncounted = Uncounted()
-    moe = phase_moe(uncounted)
+    moe = served_plan("moe", MOE_ARCH, uncounted)
     ssm = phase_ssm(uncounted)
     hybrid = phase_hybrid()
     path = {name: v - uncounted.n[name] for name, v in counts().items()}
@@ -2621,9 +2696,15 @@ ENC_DEC_PROMPTS = (256, 181, 97, 32)
 # phase 2's per-row B8 positions on each model's pool, its last slot too
 CROSS_B8_POS = {VLM_ARCH: B8_POS, ENC_DEC_ARCH: [264, 511, 105, 40]}
 CROSS_TRAIN_STEPS = 3
-# the rows of B7's and B8's JSON entries at other models' heads (phase 2)
+# the rows of B7's and B8's JSON entries at other models' heads (phase 2):
+# phase 10's, phase 11's, and phase 15's head layouts that no other row has
 HEAD_ROWS = (("deepseek", MOE_ARCH), ("llama_vision", VLM_ARCH),
-             ("seamless", ENC_DEC_ARCH))
+             ("seamless", ENC_DEC_ARCH), ("smollm", "smollm-135m"),
+             ("qwen3_moe", "qwen3-moe-235b-a22b"))
+# phase 15's plans whose heads a row above already holds: qwen3-4b's 32
+# over 8 at hd 128 are llama-3.2-vision-11b's, olmo-1b's 16 over 16 at hd
+# 128 deepseek-moe-16b's
+PLAN_SHARED_ROWS = {"qwen3-4b": "llama_vision", "olmo-1b": "deepseek"}
 
 
 def cross_prompts(cfg):
@@ -3433,6 +3514,53 @@ def sharded_only():
     log(f"[time] phase 14 sharded: {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------- phase 15 ----
+# the four LM plans that no earlier phase runs on the card (path 11; path
+# 10 is tools/sharded_serve.py's, on four cards), each at full width in
+# bf16 from seed 0 and served as phase 8 serves qwen2-0.5b, smallest first:
+# smollm-135m (30 layers, 9 heads over 3 at hd 64: B7 and B8 at rep 3; tied
+# embeddings), olmo-1b (16 layers, non-parametric LayerNorm, 16 heads over
+# 16 at hd 128), qwen3-4b (36 layers, qk-norm, 32 over 8 at hd 128) and
+# qwen3-moe-235b-a22b (128 routed experts top-8, no shared expert, qk-norm,
+# 64 heads over 4 at hd 128: rep 16, every row of B8's mma tile a real
+# head)
+PLAN_ARCHS = ("smollm-135m", "olmo-1b", "qwen3-4b", "qwen3-moe-235b-a22b")
+# qwen3-moe-235b-a22b's 94 layers (~470 GB in bf16) fit no card: 2 of them
+# at full width (~12.4 GB), a depth cut
+PLAN_CUTS = {"qwen3-moe-235b-a22b": dict(n_layers=2)}
+
+
+def phase15():
+    """The four plans never run on the card before (path 11): (main-path
+    launches, summary)."""
+    for c in ops.counters().values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    uncounted = Uncounted()
+    plans = {arch: served_plan(f"plans {arch}", arch, uncounted,
+                               **PLAN_CUTS.get(arch, {}))
+             for arch in PLAN_ARCHS}
+    path = {name: v - uncounted.n[name] for name, v in counts().items()}
+    peak = gib(torch.cuda.max_memory_allocated())
+    log(f"[plans] main-path launches {path} (comparison and measurement "
+        f"launches left out: {dict(uncounted.n)}); peak memory of the "
+        f"phase {peak:.2f} GiB")
+    missing = [name for name in PATH11 if path[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the plans' serving "
+                             f"path: {missing}")
+    return path, dict(plans, peak_gib=peak)
+
+
+def plans_only():
+    """Phase 15 alone, after phase 1: prints its lines and no result
+    line."""
+    phase_device()
+    t0 = time.perf_counter()
+    phase15()
+    log(f"[time] phase 15 plans: {time.perf_counter() - t0:.1f} s")
+
+
 def head_entry(row):
     """A kernel's measurements at another model's heads (phase 2)."""
     return {"shape": row["shape"], "max_abs_err": row["max_abs_err"],
@@ -3476,6 +3604,7 @@ PATH7 = ("flash_attention", "decode_attention")
 PATH8 = ("parity_encode", "parity_decode", "flash_attention",
          "decode_attention")
 PATH9 = ("flash_attention", "decode_attention")
+PATH11 = ("flash_attention", "decode_attention")
 
 
 def main():
@@ -3614,6 +3743,14 @@ def main():
     t14 = time.perf_counter()
     log(f"[time] phase 14 sharded: {t14 - t13:.1f} s")
 
+    # ---- path 11: the plans never served on the card before (phase 15),
+    # with phase 14's models freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    path11, plans = phase15()
+    t15 = time.perf_counter()
+    log(f"[time] phase 15 plans: {t15 - t14:.1f} s")
+
     kernels = []
     for name in ("parity_encode", "fused_encode_forward", "parity_decode",
                  "multigroup_decode", "learned_project", "berrut_encode",
@@ -3623,7 +3760,8 @@ def main():
                    "moe_ssm_serving": path5[name],
                    "cross_serving": path6[name],
                    "distributed": path7[name], "twins": path8[name],
-                   "sharded_serving": path9[name]}
+                   "sharded_serving": path9[name],
+                   "plans_serving": path11[name]}
         kernels.append(kernel_entry(name, rows[name], sum(by_path.values()),
                                     by_path))
     log(json.dumps({"summary": {
@@ -3645,6 +3783,7 @@ def main():
         "distributed": distributed,
         "twins": twins,
         "sharded": sharded,
+        "plans": plans,
         "seconds": time.perf_counter() - t0}}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
@@ -3673,10 +3812,14 @@ if __name__ == "__main__":
                          "distillation alone at each and stop")
     ap.add_argument("--sharded-only", action="store_true",
                     help="run phase 14 (sharded serving) alone and stop")
+    ap.add_argument("--plans-only", action="store_true",
+                    help="run phase 15 (the four plans) alone and stop")
     args = ap.parse_args()
     if args.distil_lrs:
         lr_sweep([float(x) for x in args.distil_lrs.split(",")])
     elif args.sharded_only:
         sharded_only()
+    elif args.plans_only:
+        plans_only()
     else:
         main()

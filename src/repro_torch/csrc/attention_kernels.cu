@@ -17,14 +17,36 @@
 //                         decode_attention (B8, one-token attention over a
 //                         KV cache): one launch, the split sweep combined
 //                         inside a thread-block cluster
+//
+// Built with -DREPRO_CHECKED (kernels/_build.py: library(checked=True)),
+// REPRO_CHECK(cond) prints the failed condition and traps; otherwise it is
+// empty.  It guards the q, K / V and output indices of all three kernels,
+// the tiles' shared-memory offsets, and the cluster combine's indices.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include <atomic>
 #include <type_traits>
+
+#ifdef REPRO_CHECKED
+#define REPRO_CHECK(cond)                                                   \
+  do {                                                                      \
+    if (!(cond)) {                                                          \
+      printf("REPRO_CHECK failed: %s (%s:%d, block %d %d %d, thread %d)\n", \
+             #cond, __FILE__, __LINE__, blockIdx.x, blockIdx.y, blockIdx.z, \
+             threadIdx.x);                                                  \
+      __trap();                                                             \
+    }                                                                       \
+  } while (0)
+#else
+#define REPRO_CHECK(cond) \
+  do {                    \
+  } while (0)
+#endif
 
 namespace {
 
@@ -62,14 +84,15 @@ __device__ __forceinline__ void widen<float>(const uint4& raw, float scale,
 // each tile before it stores any, so the loads of a tile are in flight
 // together instead of one dependent load per element.  b may be null (one
 // tile).  Rows start 16-byte aligned (the wrappers check the pointers; HD
-// and the row strides are multiples of 8 elements).
+// and the row strides are multiples of 8 elements).  `limit`: the elements
+// of the tensors from a (and from b) on, for the checked build's guards.
 template <typename T, int HD, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tiles(const T* __restrict__ a,
                                            const T* __restrict__ b,
                                            int64_t stride, int n_valid,
                                            int n_store, float scale,
                                            float* sa, int sta, float* sb,
-                                           int stb) {
+                                           int stb, int64_t limit) {
   constexpr int N = Vec<T>::N;
   constexpr int CPR = HD / N;                    // chunks per row
   constexpr int TOTAL = ROWS * CPR;
@@ -84,6 +107,7 @@ __device__ __forceinline__ void load_tiles(const T* __restrict__ a,
       ra[j] = rb[j] = make_uint4(0u, 0u, 0u, 0u);
       if (c < TOTAL && r < n_valid) {
         const int64_t off = r * stride + d;
+        REPRO_CHECK(off >= 0 && off + N <= limit);
         ra[j] = *reinterpret_cast<const uint4*>(a + off);
         if (b != nullptr) rb[j] = *reinterpret_cast<const uint4*>(b + off);
       }
@@ -158,13 +182,19 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qpos = q0 + row;
   const int64_t q_row = static_cast<int64_t>(H) * HD;
   const int64_t kv_row = static_cast<int64_t>(KV) * HD;
-  const T* qb = q + static_cast<int64_t>(b) * Sq * q_row + h * HD;
-  const T* kb_ = k + static_cast<int64_t>(b) * Sk * kv_row + kvh * HD;
-  const T* vb = v + static_cast<int64_t>(b) * Sk * kv_row + kvh * HD;
+  // the tensors' extents (gridDim.z = B), for the checked build's guards
+  const int64_t q_n = static_cast<int64_t>(gridDim.z) * Sq * q_row;
+  const int64_t kv_n = static_cast<int64_t>(gridDim.z) * Sk * kv_row;
+  REPRO_CHECK(h < H && kvh < KV && q0 < Sq);
+  const int64_t q_at = static_cast<int64_t>(b) * Sq * q_row + h * HD;
+  const int64_t kv_at = static_cast<int64_t>(b) * Sk * kv_row + kvh * HD;
+  const T* qb = q + q_at;
+  const T* kb_ = k + kv_at;
+  const T* vb = v + kv_at;
 
   load_tiles<T, HD, kBQ, kFlashThreads>(qb + q0 * q_row, nullptr, q_row,
                                         Sq - q0, kBQ, scale, qs, QS, nullptr,
-                                        0);
+                                        0, q_n - q_at - q0 * q_row);
 
   // the key tiles any row of this block can see
   const int q_last = min(q0 + kBQ, Sq) - 1;
@@ -183,7 +213,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                     // last tile's reads (and q) done
     load_tiles<T, HD, kBK, kFlashThreads>(kb_ + kb * kv_row, vb + kb * kv_row,
                                           kv_row, Sk - kb, kBK, 1.f, ks, QS,
-                                          vs, HD);
+                                          vs, HD, kv_n - kv_at - kb * kv_row);
     __syncthreads();
 
     // scores of keys cg + 4 j, j < 8
@@ -232,6 +262,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NC; ++j) {
       acc[j].x *= corr; acc[j].y *= corr; acc[j].z *= corr; acc[j].w *= corr;
     }
+    REPRO_CHECK(row < kBQ && cg + 4 * (NC - 1) < HD / 4);
     for (int c = 0; c < kBK; ++c) {
       const float p = ps[row * (kBK + 1) + c];
       const float4* v4 = reinterpret_cast<const float4*>(vs + c * HD);
@@ -248,11 +279,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qpos < Sq) {
     const float den = fmaxf(l, 1e-30f);
-    T* o = out + static_cast<int64_t>(b) * Sq * q_row + qpos * q_row +
-           h * HD;
+    const int64_t o_at = q_at + qpos * q_row;
+    T* o = out + o_at;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int d = 4 * (cg + 4 * j);
+      REPRO_CHECK(o_at + d + 4 <= q_n);
       o[d] = from_f32<T>(acc[j].x / den);
       o[d + 1] = from_f32<T>(acc[j].y / den);
       o[d + 2] = from_f32<T>(acc[j].z / den);
@@ -326,7 +358,7 @@ template <> struct TcLayout<128> {
 
 // Q, two stages of K and V, three mbarriers, and room to align to 1024
 template <int HD>
-constexpr int tc_smem_bytes() {
+__host__ __device__ constexpr int tc_smem_bytes() {
   return (kTcBQ + 4 * kTcBK) * HD * 2 + 3 * 8 + 1024;
 }
 
@@ -559,6 +591,11 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;   // longest first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the TMA boxes' coordinates, and Q, the ring and the barriers inside the
+  // dynamic shared memory (the copy engine bounds each box by its map)
+  REPRO_CHECK(q0 >= 0 && q0 < Sq && h < H && kvh < KV);
+  REPRO_CHECK(reinterpret_cast<uint8_t*>(bar + 3) <=
+              smem_raw + tc_smem_bytes<HD>());
   // the key tiles any row of this block can see
   const int q_last = min(q0 + kTcBQ, Sq) - 1;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
@@ -595,6 +632,7 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
     const int i = t - t_begin, stage = i & 1;
     // the other stage held tile t - 1, whose reads ended at the last
     // iteration's __syncthreads
+    REPRO_CHECK(t * kTcBK < Sk);
     if (tid == 0 && t + 1 < t_end)
       load_kv_tile<HD>(kv + (stage ^ 1) * 2 * T_BYTES, &tk, &tv,
                        &bar[1 + (stage ^ 1)], kvh, (t + 1) * kTcBK, b);
@@ -694,8 +732,11 @@ flash_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow =
-        out + (static_cast<int64_t>(b) * Sq + row) * q_row + h * HD;
+    const int64_t o_at = (static_cast<int64_t>(b) * Sq + row) * q_row +
+                         h * HD;
+    __nv_bfloat16* orow = out + o_at;
+    REPRO_CHECK(row >= 0 &&
+                o_at + HD <= static_cast<int64_t>(gridDim.z) * Sq * q_row);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
@@ -838,6 +879,7 @@ __device__ __forceinline__ void load_chunk(uint8_t* stage,
   for (int c = threadIdx.x & 31; c < kDecChunk * CPR; c += 32) {
     const int r = c / CPR, x = c % CPR;
     const bool valid = r < n;
+    REPRO_CHECK(!valid || (s0 + r >= 0 && s0 + r < end));
     const int64_t off = valid ? (s0 + r) * row + x * (16 / sizeof(T)) : 0;
     cp_async16(stage + r * L::RS + x * 16, kb + off, valid);
     cp_async16(stage + (kDecChunk + r) * L::RS + x * 16, vb + off, valid);
@@ -1144,6 +1186,11 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int g = blockIdx.y, b = blockIdx.z;
   const int H = KV * rep;
   const int tid = threadIdx.x, warp = tid >> 5;
+  // the grid is (cluster, KV, B): q [B, H, HD], caches [B, S, KV, HD]
+  REPRO_CHECK(cs == static_cast<int>(gridDim.x) && cs <= kMaxCluster &&
+              rank < cs && g < KV && rep >= 1 && rep <= kMaxRep);
+  REPRO_CHECK(L::RING <= L::WORK &&
+              kDecWarps * kMaxRep * (HD + 2) * 4 <= L::WORK);
   const T* qg = q + (static_cast<int64_t>(b) * H + g * rep) * HD;
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   using State = typename std::conditional<kMma, MmaState<HD>,
@@ -1156,6 +1203,7 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int n_valid = max(0, min(pos[b] + 1, S));
   int begin, end;
   cta_range(n_valid, cs, rank, &begin, &end);
+  REPRO_CHECK(begin >= 0 && begin <= end && end <= S);
   // this warp's chunks: c = warp, warp + 4, ... of the CTA's share
   const int n_chunks = (end - begin + kDecChunk - 1) / kDecChunk;
   const int n_mine = n_chunks > warp
@@ -1217,8 +1265,12 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   // owner of those outputs
   const int n4 = rep * HD / 4, per4 = (n4 + cs - 1) / cs;
   cluster_wait();                          // phase 0: every CTA has started
+  // what a CTA receives: O of its outputs ([cs][per4] float4s), m and l
+  const int recv4 = (kMaxRep * HD + 4 * kMaxCluster) / 4;
   for (int x = tid; x < rep * cs; x += kDecThreads) {
     const int r = x / cs, c = x % cs;
+    REPRO_CHECK(r < kMaxRep && c < cs && rank * kMaxRep + r <
+                kMaxCluster * kMaxRep);
     float m = kNegInf, l = 0.f;
 #pragma unroll
     for (int w = 0; w < kDecWarps; ++w)
@@ -1250,6 +1302,8 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       o.w = fmaf(v.w, wt, o.w);
     }
     const int owner = i4 / per4;
+    REPRO_CHECK(r < rep && owner < cs && (i4 + 1) * 4 <= kMaxRep * HD &&
+                rank * per4 + i4 - owner * per4 < recv4);
     reinterpret_cast<float4*>(cluster.map_shared_rank(ro, owner))
         [rank * per4 + i4 - owner * per4] = o;
   }
@@ -1262,6 +1316,9 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   for (int j4 = tid; j4 < per4 && rank * per4 + j4 < n4;
        j4 += kDecThreads) {
     const int i4 = rank * per4 + j4, r = 4 * i4 / HD;
+    REPRO_CHECK(r < rep && (cs - 1) * per4 + j4 < recv4 &&
+                (static_cast<int64_t>(b) * H + g * rep) * HD + 4 * i4 + 4 <=
+                    static_cast<int64_t>(gridDim.z) * H * HD);
     float mp[kMaxCluster];
     float m = kNegInf;
 #pragma unroll

@@ -10,7 +10,7 @@ runtime's worker threads may all reach their first kernel together.
 ``library(checked=True)`` builds the same sources with ``-DREPRO_CHECKED
 -lineinfo`` into a second, separately hashed library: there ``REPRO_CHECK``
 guards in the kernels trap on an index outside its tensor or buffer.  It is
-for checks only (``chip_smoke.py`` runs the sweeps of B1, B2 and B4
+for checks only (``chip_smoke.py`` runs the sweeps of B1, B2, B4, B7 and B8
 through it); every wrapper launches from the unchecked library unless its
 caller asks for the checked one.
 

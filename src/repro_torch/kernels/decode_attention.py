@@ -98,10 +98,12 @@ def cluster_decisions():
     return dict(_clusters)
 
 
-def decode_attention(q, k_cache, v_cache, pos):
+def decode_attention(q, k_cache, v_cache, pos, checked=False):
     """q [B,H,hd]; caches [B,S,KV,hd] (fp32 or bf16, one dtype, CUDA,
     contiguous), hd in (32, 64, 128), H / KV <= 16; pos an int32 CUDA tensor,
-    [] or [B] -> [B,H,hd] in q's dtype.  Valid slots: j <= pos[b]."""
+    [] or [B] -> [B,H,hd] in q's dtype.  Valid slots: j <= pos[b].
+    ``checked`` launches from the bounds-checked build (clusters of the size
+    decided for the unchecked one) and counts nothing."""
     name = "decode_attention"
     if q.ndim != 3 or k_cache.ndim != 4 or v_cache.shape != k_cache.shape \
             or q.shape[0] != k_cache.shape[0] or q.shape[2] != k_cache.shape[3]:
@@ -127,7 +129,7 @@ def decode_attention(q, k_cache, v_cache, pos):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.library()
+    lib = _build.library(checked)
     with _build.device_guard(q.device):
         grid = cluster_plan(B, KV, cluster_size(q.dtype, hd))
         rc = lib.repro_decode_attention(
@@ -135,6 +137,7 @@ def decode_attention(q, k_cache, v_cache, pos):
             pos.data_ptr(), out.data_ptr(), B, S, H, KV, hd, grid[0],
             hd ** -0.5, code, _build.stream(q.device))
     _build.check(rc, name)
-    launches.add()
-    route_launches[ROUTES[q.dtype]].add()
+    if not checked:
+        launches.add()
+        route_launches[ROUTES[q.dtype]].add()
     return out

@@ -34,10 +34,11 @@ route_launches = {name: _build.LaunchCounter(f"flash_attention.{name}")
 HEAD_DIMS = (32, 64, 128)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def flash_attention(q, k, v, *, causal=True, window=0, checked=False):
     """q [B,Sq,H,hd]; k,v [B,Sk,KV,hd] (fp32 or bf16, one dtype, CUDA,
     contiguous), hd in (32, 64, 128), H a multiple of KV -> [B,Sq,H,hd] in
-    q's dtype."""
+    q's dtype.  ``checked`` launches from the bounds-checked build and
+    counts nothing."""
     name = "flash_attention"
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or \
             q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
@@ -57,13 +58,14 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.library()
+    lib = _build.library(checked)
     with _build.device_guard(q.device):
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, H, KV, hd, int(bool(causal)), int(window), hd ** -0.5, code,
             _build.stream(q.device))
     _build.check(rc, name)
-    launches.add()
-    route_launches[ROUTES[q.dtype]].add()
+    if not checked:
+        launches.add()
+        route_launches[ROUTES[q.dtype]].add()
     return out

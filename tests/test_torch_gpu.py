@@ -855,3 +855,55 @@ def test_kernel_route_on_dtensors_is_bit_equal_on_the_card(cuda, H, KV, hd):
         assert torch.equal(flash.to_local(), plain[0])
         assert torch.equal(dec.to_local(), plain[1])
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)
+
+
+# --------------------------------------------------------------------------
+# B7 / B8 at the head layouts of the plans that only phase 15 serves:
+# smollm-135m (9 heads over 3, rep 3, head_dim 64) and qwen3-moe-235b-a22b
+# (64 over 4, rep 16, head_dim 128: all 16 rows of B8's mma tile real heads);
+# qwen3-4b's and olmo-1b's are the llama-vision and deepseek cases above
+# --------------------------------------------------------------------------
+PLAN_HEADS = [(9, 3, 64), (64, 4, 128)]
+
+
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("H,KV,hd", PLAN_HEADS)
+def test_flash_attention_at_plan_heads(cuda, H, KV, hd, dt, checked):
+    """B7 on its dtype's route (bf16: wgmma, fp32: simt) at the longest LM
+    prompt, q [1, 910, H, hd], k/v [1, 910, KV, hd], causal; the route
+    counter moves by one, and the bounds-checked build (which counts
+    nothing) gives the same result without a trap."""
+    from repro_torch.kernels import flash_attention as kf
+    q = torch.randn((1, 910, H, hd), generator=cuda, device="cuda").to(dt)
+    k, v = (torch.randn((1, 910, KV, hd), generator=cuda,
+                        device="cuda").to(dt) for _ in range(2))
+    route = kf.route_launches[kf.ROUTES[dt]]
+    before = route.value
+    got = kf.flash_attention(q, k, v, causal=True, checked=checked)
+    torch.cuda.synchronize()
+    assert route.value == before + (0 if checked else 1)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True), _attn_tol(dt),
+           0.0)
+
+
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("H,KV,hd", PLAN_HEADS)
+def test_decode_attention_at_plan_heads(cuda, H, KV, hd, dt, checked):
+    """B8 on its dtype's route (bf16: mma, fp32: simt) on a full serving
+    pool, q [4, H, hd], caches [4, 1280, KV, hd], per-row positions; the
+    route counter moves by one, and the bounds-checked build (which counts
+    nothing) gives the same result without a trap."""
+    from repro_torch.kernels import decode_attention as kd
+    q = torch.randn((4, H, hd), generator=cuda, device="cuda").to(dt)
+    kc, vc = (torch.randn((4, 1280, KV, hd), generator=cuda,
+                          device="cuda").to(dt) for _ in range(2))
+    pos = torch.tensor([300, 1279, 517, 1031], dtype=torch.int32,
+                       device="cuda")
+    route = kd.route_launches[kd.ROUTES[dt]]
+    before = route.value
+    got = kd.decode_attention(q, kc, vc, pos, checked=checked)
+    torch.cuda.synchronize()
+    assert route.value == before + (0 if checked else 1)
+    _close(got, ref.decode_attention_ref(q, kc, vc, pos), _attn_tol(dt), 0.0)

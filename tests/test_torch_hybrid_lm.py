@@ -62,20 +62,22 @@ def _cfgs(arch, **kw):
 _MODELS = {}
 
 
-def _model(arch):
-    """The reference's parameters for reduced ``arch`` with every leaf
-    perturbed (zero biases and unit scales would hide a wiring fault):
-    (jax cfg, torch cfg, jax tree, torch tree), built once per module."""
-    if arch not in _MODELS:
-        jcfg, tcfg = _cfgs(arch)
+def _model(arch, **kw):
+    """The reference's parameters for reduced ``arch`` (its config fields
+    replaced by ``kw`` in both packages) with every leaf perturbed (zero
+    biases and unit scales would hide a wiring fault): (jax cfg, torch cfg,
+    jax tree, torch tree), built once per module."""
+    key = (arch, tuple(sorted(kw.items())))
+    if key not in _MODELS:
+        jcfg, tcfg = _cfgs(arch, **kw)
         jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
         rng = np.random.default_rng(0)
         tree = jax.tree.map(lambda a: (np.asarray(a, np.float32) + 0.01 *
                                        rng.standard_normal(a.shape)).astype(
             np.float32), jp)
-        _MODELS[arch] = (jcfg, tcfg, jax.tree.map(jnp.asarray, tree),
-                         params_from_numpy(tree, "cpu"))
-    return _MODELS[arch]
+        _MODELS[key] = (jcfg, tcfg, jax.tree.map(jnp.asarray, tree),
+                        params_from_numpy(tree, "cpu"))
+    return _MODELS[key]
 
 
 def _toks(vocab, shape, seed):
@@ -130,7 +132,12 @@ def test_forward_prefill_decode_match_reference(arch):
     """``forward`` logits and aux, ``prefill`` logits and caches, then four
     ``decode_step``s with a scalar pos and, on a copy of the cache, with a
     [B] pos: logits and caches after each step against the reference's."""
-    jcfg, tcfg, jp, tp = _model(arch)
+    check_forward_prefill_decode(*_model(arch))
+
+
+def check_forward_prefill_decode(jcfg, tcfg, jp, tp):
+    """``test_forward_prefill_decode_match_reference``'s comparison on one
+    model: (jax cfg, torch cfg, jax tree, torch tree)."""
     toks = _toks(jcfg.vocab, (2, 20), 1)
     full, jaux = JT.forward(jcfg, jp, tokens=jnp.asarray(toks))
     tfull, aux = T.forward(tcfg, tp, tokens=torch.tensor(toks))
@@ -168,7 +175,12 @@ def test_kernels_backend_matches_pallas_interpret():
     """Reduced deepseek on the port's "kernels" backend (B7 / B8's plain
     versions on the CPU) against the reference's "pallas" backend (its
     kernels in interpret mode): forward, prefill and two decode steps."""
-    jcfg, tcfg, jp, tp = _model("deepseek-moe-16b")
+    check_kernels_vs_pallas(*_model("deepseek-moe-16b"))
+
+
+def check_kernels_vs_pallas(jcfg, tcfg, jp, tp):
+    """``test_kernels_backend_matches_pallas_interpret``'s comparison on one
+    model: (jax cfg, torch cfg, jax tree, torch tree)."""
     jcfg = jcfg.replace(attn_backend="pallas")
     assert tcfg.attn_backend == "kernels"
     toks = _toks(jcfg.vocab, (2, 12), 2)
@@ -346,6 +358,12 @@ def test_deploy_lm_serves_the_loop_tokens(arch):
     job: its streams are rebuilt from parity and keep flowing, member 1's
     streams are untouched and still equal the loop."""
     _, tcfg, _, tp = _model(arch)
+    check_serves_the_loop_tokens(tcfg, tp)
+
+
+def check_serves_the_loop_tokens(tcfg, tp):
+    """``test_deploy_lm_serves_the_loop_tokens``'s two serves of one torch
+    model (cfg, parameters) on the CPU."""
     prompts = [_toks(tcfg.vocab, (n,), 10 + n).tolist() for n in (5, 9, 7,
                                                                   12)]
     new, seq = 4, 32

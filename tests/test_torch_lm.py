@@ -137,6 +137,12 @@ def test_bf16_tree_round_trips_bit_exactly():
     (1, 256, 4, 4, 64, True, 64, "float32"),
     (2, 100, 2, 1, 32, False, 0, "float32"),
     (1, 128, 8, 2, 128, True, 0, "bfloat16"),
+    # smollm-135m's heads (rep 3, hd 64) and qwen3-moe-235b-a22b's (rep 16,
+    # hd 128)
+    (1, 128, 9, 3, 64, True, 0, "float32"),
+    (1, 128, 9, 3, 64, True, 0, "bfloat16"),
+    (1, 128, 64, 4, 128, True, 0, "float32"),
+    (1, 128, 64, 4, 128, True, 0, "bfloat16"),
 ])
 def test_flash_attention_plain_vs_pallas(B, Sq, H, KV, hd, causal, window,
                                          dt):
@@ -155,7 +161,8 @@ def test_flash_attention_plain_vs_pallas(B, Sq, H, KV, hd, causal, window,
     (2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 4, 4, 64, True, 64),
     (2, 100, 100, 2, 1, 32, False, 0), (1, 128, 128, 8, 2, 128, True, 0),
     (3, 33, 47, 6, 3, 128, False, 16), (2, 70, 70, 4, 2, 32, True, 5),
-    (1, 1, 1, 14, 2, 64, True, 0),
+    (1, 1, 1, 14, 2, 64, True, 0), (1, 256, 256, 9, 3, 64, True, 0),
+    (1, 256, 256, 64, 4, 128, True, 0),
 ])
 def test_flash_attention_bf16p_vs_pallas(B, Sq, Sk, H, KV, hd, causal,
                                          window):
@@ -180,6 +187,12 @@ def test_flash_attention_bf16p_vs_pallas(B, Sq, Sk, H, KV, hd, causal,
     (1, 1024, 8, 1, 32, 1023, "float32"),
     (3, 256, 2, 2, 64, 0, "float32"),
     (2, 384, 4, 4, 128, 200, "bfloat16"),
+    # smollm-135m's heads (rep 3, hd 64) and qwen3-moe-235b-a22b's (rep 16,
+    # hd 128)
+    (2, 384, 9, 3, 64, 200, "float32"),
+    (2, 384, 9, 3, 64, 200, "bfloat16"),
+    (2, 256, 64, 4, 128, 100, "float32"),
+    (2, 256, 64, 4, 128, 100, "bfloat16"),
 ])
 def test_decode_attention_plain_vs_pallas(B, S, H, KV, hd, pos, dt):
     rng = np.random.default_rng(S + pos)
@@ -194,13 +207,17 @@ def test_decode_attention_plain_vs_pallas(B, S, H, KV, hd, pos, dt):
 
 
 # the shapes of the chip smoke test's B8 sweep: scalar and per-row pos, a pos
-# past the cache, rep up to 16, hd 32 / 64 / 128
+# past the cache, rep up to 16, hd 32 / 64 / 128; the last two a full serving
+# pool at smollm-135m's heads (rep 3, hd 64) and qwen3-moe-235b-a22b's (rep
+# 16, hd 128: the mma tile's 16 rows all real)
 _B8_SHAPES = [
     (2, 512, 4, 2, 64, 100), (1, 1024, 8, 1, 32, 1023),
     (3, 256, 2, 2, 64, 0), (2, 384, 4, 4, 128, 200),
     (1, 1024, 8, 1, 32, 0), (3, 256, 2, 2, 64, 255),
     (3, 16, 4, 2, 64, (2, 9, 5)), (2, 100, 32, 2, 128, (99, 5000)),
     (4, 1280, 14, 2, 64, (300, 1279, 5, 700)),
+    (4, 1280, 9, 3, 64, (300, 1279, 517, 1031)),
+    (4, 1280, 64, 4, 128, (300, 1279, 517, 1031)),
 ]
 _b8_pallas = {}
 
