@@ -9,7 +9,9 @@ flattened [T*K] order.  Assignments at a place >= the capacity C are
 dropped: they are scattered into an overflow row that the expert products
 never see, and gathered back as zero.  Nothing here waits on the device
 (no boolean indexing, no ``bincount``), so a decode step stays free of host
-round trips.
+round trips.  The routing, the scatter and the gather each run in a
+``repro_torch.moe.dispatch`` span (``repro_torch.trace``), on both paths;
+the expert products do not.
 
 Two execution paths, chosen as the reference chooses them:
 
@@ -37,6 +39,9 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.distributed import logical
 from repro_torch.distributed.logical import constrain
 from repro_torch.models.layers import _dense, make_norm, torch_dtype
+from repro_torch.trace import span
+
+DISPATCH = "repro_torch.moe.dispatch"
 
 
 def _draw(gen, shape, fan_in, dtype, device, lead=()):
@@ -103,11 +108,13 @@ def route(cfg, router, xt, C):
     (gate_vals [T*K] renormalised top-k gates, flat_e [T*K] expert of each
     (token, k) assignment, pos [T*K] its place within the expert, keep
     [T*K] pos < C, aux scalar load-balance loss)."""
-    gates, flat_e, onehot, aux = _gate(cfg, router, xt)
-    # position of each (token, k) assignment within its expert, GShard cumsum
-    pos = (torch.cumsum(onehot, 0, dtype=torch.int32) - 1).gather(
-        1, flat_e[:, None])[:, 0].long()
-    return gates, flat_e, pos, pos < C, aux
+    with span(DISPATCH):
+        gates, flat_e, onehot, aux = _gate(cfg, router, xt)
+        # position of each (token, k) assignment within its expert, GShard
+        # cumsum
+        pos = (torch.cumsum(onehot, 0, dtype=torch.int32) - 1).gather(
+            1, flat_e[:, None])[:, 0].long()
+        return gates, flat_e, pos, pos < C, aux
 
 
 def moe_fwd(cfg, p, x, capacity=None):
@@ -127,26 +134,41 @@ def _sum_k(got, T, K, dtype):
     return got.reshape(T, K, -1).sum(1, dtype=torch.float32).to(dtype)
 
 
+def _scatter(xt, e_idx, pos, keep, E, C):
+    """Tokens xt [T, D] into per-expert buffers [E, C, D] at their
+    assignments (expert e_idx [T*K], place pos, kept where keep); an
+    assignment at pos >= C lands in the overflow row C, cut off here."""
+    with span(DISPATCH):
+        T, D = xt.shape
+        K = e_idx.shape[0] // T
+        tok_idx = torch.arange(T * K, device=xt.device) // K      # [T*K]
+        return constrain(xt.new_zeros((E, C + 1, D)).index_put(
+            (e_idx, torch.where(keep, pos, C)), xt[tok_idx],
+            accumulate=True)[:, :C], ("experts", "capacity", None))
+
+
+def _gather(h, e_idx, pos, keep, gates, T, dtype):
+    """The expert outputs h [E, C, D] back at the assignments, gated (zero
+    where not kept) and summed per token -> [T, D] in ``dtype``."""
+    with span(DISPATCH):
+        C, D = h.shape[1], h.shape[2]
+        got = h[e_idx, torch.clamp(pos, max=C - 1)]              # [T*K, D]
+        got = got * (gates * keep).to(got.dtype)[:, None]
+        got = constrain(got, ("tokens", None), shape=(T, D))
+        return constrain(_sum_k(got, T, e_idx.shape[0] // T, dtype),
+                         ("tokens", None))
+
+
 def _experts(xt, e_idx, pos, keep, gates, w1, w3, w2, C):
     """Tokens xt [T, D] through the SwiGLU experts w1/w3 [E, D, F],
     w2 [E, F, D] at their assignments (expert e_idx [T*K], place pos, kept
     where keep), gated and summed per token -> [T, D].  An assignment at
     pos >= C lands in the overflow row C, which the expert products do not
     read, and its gathered row is zeroed."""
-    T, D = xt.shape
-    K = e_idx.shape[0] // T
-    # scatter tokens into per-expert buffers [E, C, D]
-    tok_idx = torch.arange(T * K, device=xt.device) // K          # [T*K]
-    buf = constrain(xt.new_zeros((w1.shape[0], C + 1, D)).index_put(
-        (e_idx, torch.where(keep, pos, C)), xt[tok_idx],
-        accumulate=True)[:, :C], ("experts", "capacity", None))
+    buf = _scatter(xt, e_idx, pos, keep, w1.shape[0], C)
     h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
     h = constrain(torch.bmm(h, w2), ("experts", "capacity", None))
-    # gather back with gate weights
-    got = h[e_idx, torch.clamp(pos, max=C - 1)]                  # [T*K, D]
-    got = got * (gates * keep).to(got.dtype)[:, None]
-    got = constrain(got, ("tokens", None), shape=(T, D))
-    return constrain(_sum_k(got, T, K, xt.dtype), ("tokens", None))
+    return _gather(h, e_idx, pos, keep, gates, xt.shape[0], xt.dtype)
 
 
 def _moe_fwd_global(cfg, p, x, capacity=None):
@@ -184,6 +206,25 @@ class _MeshSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g * ctx.grad_scale, None, None, None, None
+
+
+def _route_local(cfg, router, xt, C, m_idx, E_loc):
+    """Routing of tokens xt [T, D] on model rank ``m_idx``, which holds
+    experts [m_idx E_loc, (m_idx + 1) E_loc) at capacity C: (gates [T*K],
+    local expert [T*K], place pos [T*K], this rank's aux loss).  Assignments
+    to other ranks' experts, and those at a place >= C, get pos C (the
+    overflow row)."""
+    with span(DISPATCH):
+        gates, flat_e, _, aux = _gate(cfg, router, xt)
+        local_e = flat_e - m_idx * E_loc
+        own = (local_e >= 0) & (local_e < E_loc)
+        le = torch.where(own, local_e, 0)
+        slot = torch.where(own, local_e, E_loc)
+        oh = (slot[:, None] == torch.arange(E_loc + 1, device=xt.device)).to(
+            torch.int32)
+        pos = (torch.cumsum(oh, 0, dtype=torch.int32) - 1).gather(
+            1, slot[:, None])[:, 0].long()
+        return gates, le, torch.where(own, pos, C), aux
 
 
 def _moe_fwd_ep(cfg, p, x, rules, sizes, mesh, capacity=None):
@@ -228,25 +269,13 @@ def _moe_fwd_ep(cfg, p, x, rules, sizes, mesh, capacity=None):
     def inner(xb, router, w1, w3, w2, *shared_w):
         # xb [B_loc, S, D]; router [D, E] (replicated);
         # w1/w3 [E_loc, D(_loc), F]; w2 [E_loc, F, D(_loc)]
-        m_idx = mesh.get_local_rank("model")
         xt = xb.reshape(-1, D)
-        gates, flat_e, _, aux = _gate(cfg, router, xt)
+        gates, le, pos, aux = _route_local(
+            cfg, router, xt, C, mesh.get_local_rank("model"), E_loc)
         # local aux loss, averaged over every mesh axis (identical on the
         # model ranks: routing inputs are replicated over 'model')
         aux = _MeshSum.apply(aux, mesh, all_dims, 1.0 / mesh.size(),
                              1.0 / n_partial)
-
-        # assignments owned by this model rank's experts; the rest, and
-        # those at a place >= C, land in the overflow row C
-        local_e = flat_e - m_idx * E_loc
-        own = (local_e >= 0) & (local_e < E_loc)
-        le = torch.where(own, local_e, 0)
-        slot = torch.where(own, local_e, E_loc)
-        oh = (slot[:, None] == torch.arange(E_loc + 1, device=xt.device)).to(
-            torch.int32)
-        pos = (torch.cumsum(oh, 0, dtype=torch.int32) - 1).gather(
-            1, slot[:, None])[:, 0].long()
-        pos = torch.where(own, pos, C)
         # FSDP gather of this rank's expert weights (per layer, transient);
         # the inference layout (fsdp_params=False) keeps them resident
         out = _experts(xt, le, pos, pos < C, gates, gather(w1, 1),

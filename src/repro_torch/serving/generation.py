@@ -105,6 +105,7 @@ from repro_torch.serving.api import (BatchingPolicy, DeploymentSpec, Trace,
                                      deploy)
 from repro_torch.serving.report import ServingReport
 from repro_torch.serving.scenarios import get_scenario, instance_id
+from repro_torch.trace import span
 
 _SHUTDOWN = object()
 
@@ -301,7 +302,8 @@ class _Executor(threading.Thread):
     (``rules``, thread-local) and on a stream of its own, and each job
     under ``per_job`` (the shared implicit replication).  A job's error is
     also handed to ``on_error``.  Every job is recorded in ``issued`` as
-    (instance, kind, round, delay s, thread id) before it runs."""
+    (instance, kind, round, delay s, thread id) before it runs, and runs in
+    a ``repro_torch.lm.job.<kind>`` span (``repro_torch.trace``)."""
 
     def __init__(self, name, dev, issued, rules=None, per_job=nullcontext,
                  on_error=None, hold=False):
@@ -337,7 +339,8 @@ class _Executor(threading.Thread):
                     self.issued.append((*label, d, threading.get_ident()))
                     if d and not self.hold:
                         time.sleep(d)
-                    with self.per_job():
+                    with self.per_job(), span("repro_torch.lm.job." +
+                                              label[1]):
                         out["result"] = fn()
                 except Exception as e:    # surfaced at collection time
                     out["error"] = e
@@ -908,27 +911,29 @@ class GenerationSession:
         self._dirty.clear()
 
     def _prefill_admitted(self, plan):
-        jobs = []
-        for rid, prompt, max_new, i, s, t_admit in plan:
-            stream = _Stream(rid, prompt, max_new, self._take(rid, prompt),
-                             t_admit)
-            self._slots[i][s] = stream
-            if self._t0 is None:
-                with self._lock:
-                    self._t0 = t_admit
-            inst = self._members[i]
+        with span("repro_torch.lm.admit.prefill"):
+            jobs = []
+            for rid, prompt, max_new, i, s, t_admit in plan:
+                stream = _Stream(rid, prompt, max_new,
+                                 self._take(rid, prompt), t_admit)
+                self._slots[i][s] = stream
+                if self._t0 is None:
+                    with self._lock:
+                        self._t0 = t_admit
+                inst = self._members[i]
 
-            def job(prompt=prompt, inst=inst, s=s):
-                toks = torch.tensor([prompt], dtype=torch.int32,
-                                    device=self.dev)          # [1, P]
-                logits, one = self._prefill(inst.params, tokens=toks,
-                                            cache_len=self.max_seq)
-                _write_slot(inst.pool, one, s)
-                return to_host(logits[0, -1])
-            jobs.append(self._submit(inst, "prefill", job, delayed=True))
-        # first tokens come from the prefill logits (admission path,
-        # uncoded); decode steps from here on are coded
-        rows = [_result(job) for job in jobs]
+                def job(prompt=prompt, inst=inst, s=s):
+                    toks = torch.tensor([prompt], dtype=torch.int32,
+                                        device=self.dev)          # [1, P]
+                    logits, one = self._prefill(inst.params, tokens=toks,
+                                                cache_len=self.max_seq)
+                    _write_slot(inst.pool, one, s)
+                    with span("repro_torch.lm.sync"):
+                        return to_host(logits[0, -1])
+                jobs.append(self._submit(inst, "prefill", job, delayed=True))
+            # first tokens come from the prefill logits (admission path,
+            # uncoded); decode steps from here on are coded
+            rows = [_result(job) for job in jobs]
         firsts, now = self._share(
             ([int(np.argmax(row)) for row in rows], time.monotonic())
             if self._decides else None)
@@ -971,21 +976,23 @@ class GenerationSession:
             for j in range(self.r):
                 self._ppos[j, s] = 0
             return
-        jobs = []
-        for j, inst in enumerate(self._parities):
-            def job(j=j, inst=inst):
-                # encoded prompt embeddings [1, L, D], left-padded
-                embs = [pad_seq(self._embed(inst.embed_params, torch.tensor(
-                    [h], dtype=torch.int32, device=self.dev)), L - len(h), 0)
-                    if h else None for h in hists]
-                _, one = self._prefill(inst.params,
-                                       embeds=self._encode(j, embs),
-                                       cache_len=self.max_seq)
-                _write_slot(inst.pool, one, s)
-            jobs.append(self._submit(inst, "rebuild", job))
-        for j, job in enumerate(jobs):
-            _result(job)
-            self._ppos[j, s] = L
+        with span("repro_torch.lm.admit.rebuild"):
+            jobs = []
+            for j, inst in enumerate(self._parities):
+                def job(j=j, inst=inst):
+                    # encoded prompt embeddings [1, L, D], left-padded
+                    embs = [pad_seq(self._embed(
+                        inst.embed_params, torch.tensor(
+                            [h], dtype=torch.int32, device=self.dev)),
+                        L - len(h), 0) if h else None for h in hists]
+                    _, one = self._prefill(inst.params,
+                                           embeds=self._encode(j, embs),
+                                           cache_len=self.max_seq)
+                    _write_slot(inst.pool, one, s)
+                jobs.append(self._submit(inst, "rebuild", job))
+            for j, job in enumerate(jobs):
+                _result(job)
+                self._ppos[j, s] = L
 
     def _step(self, active):
         """One coded decode step for every active stream."""
@@ -1008,7 +1015,8 @@ class GenerationSession:
                     inst.params, inst.pool,
                     torch.as_tensor(pi, device=self.dev),
                     token=torch.as_tensor(ti, device=self.dev))
-                return to_host(logits)             # [n_slots, 1, V]
+                with span("repro_torch.lm.sync"):
+                    return to_host(logits)         # [n_slots, 1, V]
 
             member_out.append(self._submit(inst, "decode", job,
                                            delayed=True))
@@ -1029,7 +1037,8 @@ class GenerationSession:
                     inst.params, inst.pool,
                     torch.as_tensor(ppos_j, device=self.dev),
                     embed=self._encode(j, embs.unbind(0)))
-                return to_host(logits)
+                with span("repro_torch.lm.sync"):
+                    return to_host(logits)
             parity_out.append(self._submit(inst, "decode", pjob,
                                            delayed=True))
             self._ppos[j][list(active_slots)] += 1
